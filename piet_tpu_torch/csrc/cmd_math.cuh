@@ -1,0 +1,206 @@
+// Shared device math of the port's kernels: the exact helpers and the
+// per-pixel command evaluators of piet_tpu_torch/ops/cmd_math.py, written
+// expression for expression in the same order.
+//
+// Exactness contract (kernels.py builds with -fmad=false -prec-div=true
+// -prec-sqrt=true -ftz=false): every multiply and add rounds on its own,
+// division and sqrt are IEEE, denormals are kept.  Float constants are
+// written as (float)<double literal>, which is how numpy and PyTorch round
+// a python float to f32 (a direct 1.234f literal may round differently).
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#define PIET_F32(x) ((float)(x))
+
+namespace piet {
+
+// Command tags (piet_tpu/raster/ptcl.py) and the entry word map
+// (piet_tpu/layout/entry_stream.py).
+constexpr int CMD_CIRCLE = 2, CMD_LINE = 3, CMD_FILL = 4, CMD_STROKE = 5,
+              CMD_FILL_EDGE = 6, CMD_DRAW_FILL = 7, CMD_SOLID = 8,
+              CMD_BEGIN_CLIP = 10, CMD_END_CLIP = 11, CMD_BEGIN_LAYER = 12,
+              CMD_END_LAYER = 13, CMD_DRAW_LIN_GRAD = 14,
+              CMD_DRAW_RAD_GRAD = 15, CMD_WIND = 16;
+constexpr int ENTRY_WORDS = 16, W_S0_TAG = 0, W_S0_ARG = 1, W_S1_TAG = 8,
+              W_S1_ARG = 9;
+constexpr int META_CLEAR_BIT = 8;
+constexpr int MAX_GROUP_DEPTH = 4;
+// Initial SQUARED distance field (ops/cmd_math.py DF2_INIT).
+constexpr float DF2_INIT = PIET_F32(1e18);
+
+__device__ __forceinline__ float tmin(float a, float b) {
+  return (a < b || a != a) ? a : b;  // NaN-propagating, as torch.minimum
+}
+__device__ __forceinline__ float tmax(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+__device__ __forceinline__ float sat(float v) {
+  return tmin(tmax(v, 0.f), 1.f);
+}
+// jnp.sign: keeps -0.0 and NaN (torch.sign does not).
+__device__ __forceinline__ float sgn(float x) {
+  return x > 0.f ? 1.f : (x < 0.f ? -1.f : x);
+}
+// Saturating float -> int32 (NaN -> 0), as XLA converts.
+__device__ __forceinline__ int f2i_sat(float x) { return __float2int_rz(x); }
+__device__ __forceinline__ int wrap_add(int a, int b) {
+  return (int)((unsigned)a + (unsigned)b);
+}
+
+// Exact floor-div/mod of small non-negative ints via f32 with residue
+// fixup (piet_tpu/ops/coarse.py::_fdivmod).  w >= 1.
+__device__ __forceinline__ void fdivmod(int local, int w, int* q_out,
+                                        int* r_out) {
+  float wf = (float)w;
+  int q = __float2int_rz(floorf((float)local / wf));
+  int r = local - q * w;
+  q = q + (r >= w ? 1 : 0) - (r < 0 ? 1 : 0);
+  *q_out = q;
+  *r_out = local - q * w;
+}
+
+__device__ __forceinline__ float ieee_sqrt(float x) {
+  const float s0 = sqrtf(x);
+  const uint32_t ub = __float_as_uint(s0);
+  float best_s = s0, best_a = INFINITY;
+#pragma unroll
+  for (int d = -2; d <= 2; ++d) {
+    const float s = __uint_as_float(ub + (uint32_t)d);
+    const float c = s * 4097.f;
+    const float hi = c - (c - s);
+    const float lo = s - hi;
+    const float dd = ((hi * hi) - x) + (2.f * (hi * lo)) + (lo * lo);
+    const float a = fabsf(dd);
+    if (a < best_a) {
+      best_s = s;
+      best_a = a;
+    }
+  }
+  return x > 0.f ? best_s : s0;
+}
+
+__device__ __forceinline__ float div_det(float a, float b) {
+  const float q0 = a / b;
+  const float cb = b * 4097.f;
+  const float bh = cb - (cb - b);
+  const float bl = b - bh;
+  const uint32_t u0 = __float_as_uint(q0);
+  float best_q = q0, best_r = INFINITY, best_ev = 0.f;
+#pragma unroll
+  for (int d = -3; d <= 3; ++d) {
+    const uint32_t uq = u0 + (uint32_t)d;
+    const float q = __uint_as_float(uq);
+    const float cq = q * 4097.f;
+    const float qh = cq - (cq - q);
+    const float ql = q - qh;
+    const float r = fabsf((((a - qh * bh) - qh * bl) - ql * bh) - ql * bl);
+    const float ev = 1.f - (float)(uq & 1u);
+    if ((r < best_r) || ((r == best_r) && (ev > best_ev))) {
+      best_q = q;
+      best_ev = ev;
+      best_r = r;
+    }
+  }
+  const bool ok = (b != 0.f) && (fabsf(q0) < INFINITY) && (q0 == q0);
+  return ok ? best_q : q0;
+}
+
+__device__ __forceinline__ float line_field_sq(const float* a, float X,
+                                               float Y) {
+  const float sx = a[0], sy = a[1], ex = a[2], ey = a[3], inv_denom = a[5];
+  const float lvx = ex - sx, lvy = ey - sy;
+  const float dpx = X - sx, dpy = Y - sy;
+  const float dotp = (lvx * dpx) + (lvy * dpy);
+  const float tpar = inv_denom < INFINITY ? sat(dotp * inv_denom) : 0.f;
+  const float fx = (lvx * tpar) - dpx;
+  const float fy = (lvy * tpar) - dpy;
+  return (fx * fx) + (fy * fy);
+}
+
+__device__ __forceinline__ float fill_F(float u) {
+  const float c = sat(u);
+  return tmin(u, 1.f) - (0.5f * (c * c));
+}
+
+// Returns the masked delta (0 where the mask is off) through *delta.
+__device__ __forceinline__ bool fill_delta(const float* a, float X, float Y,
+                                           float* delta) {
+  const float sx = a[0], sy = a[1], ey = a[2], m = a[3], K = a[4];
+  const float rsy = sy - Y;
+  const float rey = ey - Y;
+  const float w0 = sat(rsy);
+  const float w1 = sat(rey);
+  const bool mask = w0 != w1;
+  const float wa = tmin(w0, w1);
+  const float wb = tmax(w0, w1);
+  const float rx = sx - X;
+  const float ua = rx + (m * (wa - rsy));
+  const float ub = rx + (m * (wb - rsy));
+  const float umin = tmin(ua, ub);
+  const float umax = tmax(ua, ub);
+  const float d = (fill_F(umax) - fill_F(umin)) * K;
+  const float u0 = w0 <= w1 ? ua : ub;
+  const float deg = (1.f - sat(u0)) * (w0 - w1);
+  *delta = (umax - umin > PIET_F32(1e-4)) ? d : deg;
+  return mask;
+}
+
+__device__ __forceinline__ float edge_delta(const float* a, float Y) {
+  return a[0] * sat(Y - a[1] + 1.f);
+}
+
+__device__ __forceinline__ float clip_alpha(float x, float even_odd) {
+  const float eo = fabsf(x - 2.f * rintf(0.5f * x));
+  const float nz = tmin(fabsf(x), 1.f);
+  return even_odd != 0.f ? eo : nz;
+}
+
+// Coverage of the draw command's clip rect (operand words 8-11).
+__device__ __forceinline__ float clip_cov(const float* a, float X, float Y) {
+  const float covx = sat(tmin(a[10], X + 1.f) - tmax(a[8], X));
+  const float covy = sat(tmin(a[11], Y + 1.f) - tmax(a[9], Y));
+  return covx * covy;
+}
+
+// Deterministic linear -> sRGB u8 code (scene/color.py::linear_to_srgb_det).
+__device__ __forceinline__ uint32_t srgb_encode(float ch) {
+  const float PL[9] = {
+      __uint_as_float(0xbc11672du), __uint_as_float(0x3df85f12u),
+      __uint_as_float(0xbf3c26e2u), __uint_as_float(0x40265a14u),
+      __uint_as_float(0xc0be1d92u), __uint_as_float(0x41133b6au),
+      __uint_as_float(0xc11f25bau), __uint_as_float(0x41021532u),
+      __uint_as_float(0xc05af24eu)};
+  const float PE[6] = {
+      __uint_as_float(0x3af86540u), __uint_as_float(0x3c129325u),
+      __uint_as_float(0x3d64d0e6u), __uint_as_float(0x3e75e776u),
+      __uint_as_float(0x3f317295u), __uint_as_float(0x3f7ffffeu)};
+  ch = sat(ch);
+  const float lo = ch * PIET_F32(12.92);
+  const uint32_t u = __float_as_uint(ch);
+  const float e = (float)((int)((u >> 23) & 0x1FFu) - 127);
+  const float m = __uint_as_float((u & 0x007FFFFFu) | 0x3F800000u);
+  float acc = PL[0];
+#pragma unroll
+  for (int i = 1; i < 9; ++i) acc = (acc * m) + PL[i];
+  const float t = (e + acc) * PIET_F32(1.0 / 2.4);
+  const float k = floorf(t);
+  const float fr = t - k;
+  const float s =
+      __int_as_float((int)((unsigned)(__float2int_rz(k) + 127) << 23));
+  float pe = PE[0];
+#pragma unroll
+  for (int i = 1; i < 6; ++i) pe = (pe * fr) + PE[i];
+  const float hi = (PIET_F32(1.055) * (s * pe)) - PIET_F32(0.055);
+  const float srgb = ch < PIET_F32(0.0031308) ? lo : hi;
+  return (uint32_t)__float2int_rn(srgb * 255.f);
+}
+
+__device__ __forceinline__ uint32_t pack_rgba8(float r, float g, float b) {
+  return srgb_encode(r) | (srgb_encode(g) << 8) | (srgb_encode(b) << 16) |
+         0xFF000000u;
+}
+
+}  // namespace piet
