@@ -1,23 +1,30 @@
 """piet-tpu on PyTorch: the renderer's entry-stream path for NVIDIA Hopper.
 
 A second package beside ``piet_tpu/`` (the JAX reference).  It imports
-``torch`` and never ``jax``.  The numpy host layer -- scenes, geometry,
-the entry-stream word map, the CPU oracle, capacity fitting and the
-host segment stage -- is imported from ``piet_tpu`` as it is; the device
-pass is ported:
+``torch`` and never ``jax``, and nothing of ``piet_tpu``: the numpy host
+layer -- configuration, scenes and geometry, the entry-stream word map,
+the CPU oracle, capacity fitting, the host segment stage, the PNG writer
+-- is the port's own copy of the JAX package's modules, at the same
+relative paths (``host.py`` re-exports it for scripts).  The device pass
+is ported:
 
   ops/cmd_math.py   -- per-pixel command math and exact division/sqrt
   ops/candfuse.py   -- candidate-record expansion   (kernel A)
   ops/hitfuse.py    -- hit-record expansion + tests (kernel B)
-  ops/keyed.py      -- keyed integer sums (torch glue)
   ops/sort.py       -- stable packed-key sort       (kernel C)
-  ops/coarse.py     -- coarse binning -> entry stream
   ops/fine.py       -- entry-stream interpreter     (kernel D)
-  renderer/         -- Renderer(cfg, device=...).render(scene)
+  ops/expand.py     -- ragged expansion + row gather
+  ops/keyed.py      -- keyed integer sums
+  ops/gatherm.py    -- row gather for K index streams
+  ops/coarse.py     -- coarse binning -> entry stream (host-staged or
+                       device-derived segment stage)
+  renderer/         -- Renderer(cfg).render(scene), on "cuda" by default
+  scene/affine.py   -- make_affine_render_fn: any scene under affines of t
+  scene/animate.py  -- make_animated_render_fn: the animated fixture at t
   kernels.py        -- nvcc build, ctypes load, launch counters
 
 Every kernel wrapper runs its plain-PyTorch version for a CPU tensor and
 launches its CUDA kernel (csrc/) for a CUDA tensor; nothing falls back.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

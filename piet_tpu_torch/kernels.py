@@ -1,10 +1,11 @@
 """Build, load and launch the port's CUDA kernels.
 
-The sources under ``csrc/`` are compiled at first use by ``nvcc`` into one
+The sources under ``csrc/`` are compiled at first use by ``nvcc``, one
+process per ``.cu`` file, all started together, and linked into one
 shared library with a plain C interface, loaded with ``ctypes``:
 
   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
-       -prec-div=true -prec-sqrt=true -ftz=false -shared -Xcompiler -fPIC
+       -prec-div=true -prec-sqrt=true -ftz=false -Xcompiler -fPIC -c
 
 ``-fmad=false`` and the IEEE division/sqrt/denormal flags are part of the
 renderer's exactness contract: the numpy oracle rounds every multiply and
@@ -35,11 +36,12 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "piet_tpu_torch"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-prec-div=true", "-prec-sqrt=true",
-              "-ftz=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-ftz=false", "-Xcompiler", "-fPIC"]
 
 #: Launches per kernel wrapper (one per wrapper call that launched its
 #: kernel).  Plain-version calls never count.
-LAUNCHES = {"candfuse": 0, "hitfuse": 0, "sort": 0, "fine": 0}
+LAUNCHES = {"candfuse": 0, "hitfuse": 0, "sort": 0, "fine": 0, "expand": 0,
+            "keyed": 0, "gatherm": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,6 +51,9 @@ _SIGNATURES = {
     "piet_hitfuse": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "piet_sort_f32_i32": [_P, _P, _I, _P],
     "piet_fine_entries": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "piet_expand": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "piet_keyed": [_P, _P, _P, _I, _I, _I, _P],
+    "piet_gatherm": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _LIB = None
@@ -86,22 +91,44 @@ def library_path() -> Path:
     return BUILD_DIR / f"libpiet_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds) -> None:
+    """Run the commands in parallel; once all have ended, raise with the
+    command line and output of the first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for c, p, (out, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                               f"{' '.join(c)}\n{out}\n{err}")
+
+
 def build() -> Path:
-    """Compile csrc/ into the shared library unless it is already built;
-    raises with nvcc's output if the build fails."""
+    """Compile csrc/ into the shared library unless it is already built:
+    one nvcc per source, all at once, then one link.  Raises with nvcc's
+    output if a step fails."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs, compiles = [], []
+    for src in (p for p in _sources() if p.suffix == ".cu"):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        objs.append(obj)
+        compiles.append([nvcc] + NVCC_FLAGS + ["-c", str(src), "-o",
+                                               str(obj)])
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = ([_nvcc()] + NVCC_FLAGS + ["-o", str(tmp)]
-           + [str(p) for p in _sources() if p.suffix == ".cu"])
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
+    try:
+        _run_all(compiles)
+        _run_all([[nvcc, "-shared", "-o", str(tmp)]
+                  + [str(o) for o in objs]])
+        os.replace(tmp, out)
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     return out
 
 

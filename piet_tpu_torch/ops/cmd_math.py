@@ -22,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from piet_tpu.scene.color import SRGB_PE, SRGB_PL
+from ..scene.color import SRGB_PE, SRGB_PL
 
 
 def _f(v) -> float:

@@ -1,24 +1,29 @@
 """Coarse binning: staged scene -> entry-stream PTCL, in PyTorch.
 
-Port of ``piet_tpu/ops/coarse.py::coarse_rasterize(output="entries")`` on
-the main path of a static scene: the host-staged segment table
-(``seg_pre``, renderer/segstage.py) and the fused-record route -- kernel A
-(candidate expansion), kernel B (hit records), keyed sums, the backdrop
-prefix, the candidate tail commands, one stable sort (kernel C), the
-sorted gather, the ``W_RUN`` run words, per-tile ranges and the bail.
-The output is word for word the JAX pass's (tests/test_torch_coarse.py).
+Port of ``piet_tpu/ops/coarse.py::coarse_rasterize(output="entries")``:
+the segment stage -- host-staged (``seg_pre``, renderer/segstage.py) or
+derived on the device from the scene's points (``seg_pre=None``, the
+device-animation path: :func:`derive_seg_stage`) -- then the fused-record
+route: kernel A (candidate expansion), kernel B (hit records), keyed sums,
+the backdrop prefix, the candidate tail commands, one stable sort (kernel
+C), the sorted gather, the ``W_RUN`` run words, per-tile ranges and the
+bail.  The output is word for word the JAX pass's
+(tests/test_torch_coarse.py).
 
 The fused route is taken for every scene: the JAX package gates it on by
 a record count measured on the TPU, but the fused and staged routes are
-bitwise identical, so the port drops the gate.  What the slice does not
-cover raises ``NotImplementedError`` naming its ROADMAP.md item: the
-device segment derivation (``seg_pre=None``), the unpacked two-key sort,
-the dense output and entry pairing.
+bitwise identical, so the port drops the gate.  The same holds for the
+JAX pass's optional engines: the port always takes ``expand_rows``
+(ops/expand.py), ``keyed_sum`` (ops/keyed.py) and ``gather_monotone``
+(ops/gatherm.py), in both branches.  What the slice does not cover raises
+``NotImplementedError`` naming its ROADMAP.md item: the unpacked two-key
+sort, the dense output and entry pairing.
 
-Bit patterns: candidate rows, the bail colour and the entry rows travel
-as int32.  Colours are NaN patterns as f32 and several words are integers
-or denormal patterns, so they only move through gathers, selects and
-concatenations of int32 views, never through float arithmetic.
+Bit patterns: candidate rows, segment rows, the bail colour and the entry
+rows travel as int32.  Colours are NaN patterns as f32 and several words
+are integers or denormal patterns, so they only move through gathers,
+selects and concatenations of int32 views, never through float
+arithmetic.
 """
 
 from __future__ import annotations
@@ -27,23 +32,22 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from piet_tpu.layout.entry_stream import (ENTRY_WORDS, META_CLEAR_BIT,
-                                          META_NCMDS_MASK, META_OPAQUE_BIT,
-                                          RUN_CAP, W_BAIL, W_META, W_RUN,
-                                          W_S0_TAG, W_S1_TAG)
-from piet_tpu.raster.ptcl import (CMD_BEGIN_CLIP, CMD_BEGIN_LAYER,
-                                  CMD_CIRCLE, CMD_DRAW_FILL,
-                                  CMD_DRAW_LIN_GRAD, CMD_DRAW_RAD_GRAD,
-                                  CMD_END_CLIP, CMD_END_LAYER, CMD_FILL,
-                                  CMD_LINE, CMD_SOLID, CMD_STROKE, CMD_WIND)
-from piet_tpu.scene.scene import (FLAG_BRUSH_LINEAR, FLAG_BRUSH_RADIAL,
-                                  FLAG_FILL_CONT, FLAG_FILL_FINAL,
-                                  FLAG_IN_GROUP, FLAG_POP_LAYER, TAG_CIRCLE,
-                                  TAG_CLIP, TAG_FILL, TAG_LAYER, TAG_LINE,
-                                  TAG_POLY, TAG_POP)
-
+from ..layout.entry_stream import (ENTRY_WORDS, META_CLEAR_BIT,
+                                   META_NCMDS_MASK, META_OPAQUE_BIT, RUN_CAP,
+                                   W_BAIL, W_META, W_RUN, W_S0_TAG, W_S1_TAG)
+from ..raster.ptcl import (CMD_BEGIN_CLIP, CMD_BEGIN_LAYER, CMD_CIRCLE,
+                           CMD_DRAW_FILL, CMD_DRAW_LIN_GRAD,
+                           CMD_DRAW_RAD_GRAD, CMD_END_CLIP, CMD_END_LAYER,
+                           CMD_FILL, CMD_LINE, CMD_SOLID, CMD_STROKE,
+                           CMD_WIND)
+from ..scene.scene import (FLAG_BRUSH_LINEAR, FLAG_BRUSH_RADIAL,
+                           FLAG_FILL_CONT, FLAG_FILL_FINAL, FLAG_IN_GROUP,
+                           FLAG_POP_LAYER, TAG_CIRCLE, TAG_CLIP, TAG_FILL,
+                           TAG_LAYER, TAG_LINE, TAG_POLY, TAG_POP)
 from .candfuse import cand_records_fused
-from .cmd_math import _f
+from .cmd_math import _f, div_det, dot2_det
+from .expand import expand_rows
+from .gatherm import gather_monotone
 from .hitfuse import hit_records_fused, split_fused
 from .keyed import keyed_sum
 from .sort import stable_sort_multi
@@ -53,8 +57,9 @@ F32, I32 = torch.float32, torch.int32
 
 
 class SegPre(NamedTuple):
-    """Host-precomputed segment stage on the device (renderer/segstage.py):
-    ``seg_rows`` stays int32 bit patterns."""
+    """The segment stage on the device: staged from the host
+    (renderer/segstage.py) or derived by :func:`derive_seg_stage`.
+    ``seg_rows`` holds int32 bit patterns."""
     seg_rows: torch.Tensor    # (S, 27) int32
     hit_counts: torch.Tensor  # (S,) int32
     hit_excl: torch.Tensor    # (S,) int32
@@ -167,6 +172,156 @@ def cand_inputs(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
     return CandInputs(cand_pack, counts, excl, incl[-1:].clone())
 
 
+def derive_seg_stage(scene: DeviceScene, item_pack: torch.Tensor, *,
+                     tile_w: int, tile_h: int, max_segments: int,
+                     taps: Optional[dict] = None) -> SegPre:
+    """The segment stage derived on the device (``seg_pre=None``): a port
+    of ``piet_tpu/ops/coarse.py:379-587``, expression for expression.
+
+    ``item_pack`` is the (NI, 9) int32 item block of the candidate rows
+    (tags masked to live items, n_pts, pt_offset, cand_excl, bx0, by0,
+    bx1, by1, bw).  Returns the SegPre that ``build_seg_pre`` stages from
+    the host: the (S, 27) segment rows as int32 bits, bitwise equal to
+    the host's on every live segment, and the hit counts.  (Dead rows,
+    which no record reads, keep the JAX device pass's words where the
+    host stage writes zeros.)  Eager PyTorch rounds every product on its
+    own, so the JAX pass's contraction barriers (``_bar``) have no
+    counterpart here.
+    """
+    dev = item_pack.device
+    NI = item_pack.shape[0]
+    twf, thf = float(tile_w), float(tile_h)
+    tags = item_pack[:, 0]
+    # Fill items: n wrap-around segments; poly: n-1; line: 1; circle: 0.
+    is_fill_item = (tags == TAG_FILL) | (tags == TAG_CLIP)
+    seg_counts = torch.where(
+        is_fill_item, scene.n_pts,
+        torch.where(tags == TAG_POLY, torch.clamp(scene.n_pts - 1, min=0),
+                    torch.where(tags == TAG_LINE, 1, 0))).to(I32)
+    seg_excl, seg_incl = _exclusive_cumsum(seg_counts)
+    n_segs = seg_incl[-1:]
+    np_max = scene.points.shape[0] - 1
+    # The item's first point rides the expansion row (words 12-13): the
+    # fill wrap-around endpoint.
+    first_pt = scene.points[torch.clamp(scene.pt_offset, 0, np_max).long()]
+    item_ids = torch.arange(NI, dtype=I32, device=dev)
+    item_rows = torch.cat(
+        [item_pack, _bits(scene.widths)[:, None], seg_excl[:, None],
+         item_ids[:, None], _bits(first_pt)], dim=1).contiguous()  # (NI, 14)
+    if taps is not None:
+        taps["expand"] = (item_rows, seg_counts, max_segments, seg_excl)
+    sitem = expand_rows(item_rows, seg_counts, max_segments, seg_excl)
+    sitem_f = sitem.view(F32)
+    seg_idx = torch.arange(max_segments, dtype=I32, device=dev)
+    seg_valid = seg_idx < n_segs
+    seg_local = seg_idx - sitem[:, 10]
+    seg_item = sitem[:, 11]
+    s_tag, s_npts, s_ptoff, s_cand_excl = (sitem[:, 0], sitem[:, 1],
+                                           sitem[:, 2], sitem[:, 3])
+    s_bx0, s_by0, s_bx1, s_by1, s_bw = (sitem[:, 4], sitem[:, 5],
+                                        sitem[:, 6], sitem[:, 7],
+                                        sitem[:, 8])
+    i0 = s_ptoff + seg_local
+    s_is_fill_tag = (s_tag == TAG_FILL) | (s_tag == TAG_CLIP)
+    wrap = s_is_fill_tag & (seg_local + 1 == s_npts)
+    # Endpoints: i0 and i0 + 1 are nondecreasing across live segments;
+    # the one non-monotone endpoint, the fill wrap-around, comes from the
+    # carried first point.  Dead slots pin to np_max.  (The JAX package
+    # refuses the expand and gatherm engines in one executable: a
+    # workaround for an XLA:TPU miscompile, with no CUDA counterpart.)
+    i0_g = torch.where(seg_valid, torch.clamp(i0, 0, np_max), np_max)
+    j1_g = torch.where(seg_valid, torch.clamp(i0 + 1, 0, np_max), np_max)
+    if taps is not None:
+        taps.setdefault("gatherm", []).append((scene.points, (i0_g, j1_g)))
+    p0e, p1n = gather_monotone(scene.points, (i0_g, j1_g))
+    p1e = torch.where(wrap[:, None], sitem_f[:, 12:14], p1n)
+    p0 = torch.where(seg_valid[:, None], p0e, 0.0)
+    p1 = torch.where(seg_valid[:, None], p1e, 0.0)
+    sx, sy = p0[:, 0], p0[:, 1]
+    ex, ey = p1[:, 0], p1[:, 1]
+    a = ey - sy
+    b = sx - ex
+    c = -((a * sx) + (b * sy))
+    xmn = torch.minimum(p0, p1)
+    xmx = torch.maximum(p0, p1)
+    s_hw = 0.5 * sitem_f[:, 9] + 0.5
+    is_fill_seg = seg_valid & s_is_fill_tag
+    is_stroke_seg = seg_valid & ((s_tag == TAG_POLY) | (s_tag == TAG_LINE))
+
+    # ---- per-segment emission rects ------------------------------------
+    # Fill: exact solve of the reference's extent conditions (tile dims
+    # are powers of two).  Stroke: the rect of the inflated segment, each
+    # end probed one tile further with the per-record cull's own f32
+    # expressions.  Line items: the item bbox rect.
+    fx_lo = torch.floor(xmn[:, 0] / twf).to(I32)
+    fx_hi = torch.ceil(xmx[:, 0] / twf).to(I32) - 1
+    fy_lo = torch.floor(xmn[:, 1] / thf).to(I32)
+    fy_hi = torch.floor(xmx[:, 1] / thf).to(I32)
+
+    def _stroke_range(lo_v, hi_v, dim, step):
+        lo = torch.floor(lo_v / step).to(I32)
+        hi = torch.ceil(hi_v / step).to(I32) - 1
+
+        def passes(t):
+            o = t.to(F32) * step
+            return (xmx[:, dim] > o - s_hw) & (xmn[:, dim] < o + step + s_hw)
+
+        lo = torch.where(passes(lo - 1), lo - 1, lo)
+        hi = torch.where(passes(hi + 1), hi + 1, hi)
+        return lo, hi
+
+    st_x_lo, st_x_hi = _stroke_range(xmn[:, 0] - s_hw, xmx[:, 0] + s_hw,
+                                     0, twf)
+    st_y_lo, st_y_hi = _stroke_range(xmn[:, 1] - s_hw, xmx[:, 1] + s_hw,
+                                     1, thf)
+    W = torch.where
+    is_line_item = s_tag == TAG_LINE
+    r_x_lo = W(is_fill_seg, fx_lo, W(is_line_item, s_bx0, st_x_lo))
+    r_x_hi = W(is_fill_seg, fx_hi, W(is_line_item, s_bx1, st_x_hi))
+    r_y_lo = W(is_fill_seg, fy_lo, W(is_line_item, s_by0, st_y_lo))
+    r_y_hi = W(is_fill_seg, fy_hi, W(is_line_item, s_by1, st_y_hi))
+    # Clip to the item's bbox rect (the reference's per-tile hit gate).
+    r_x_lo = torch.maximum(r_x_lo, s_bx0)
+    r_x_hi = torch.minimum(r_x_hi, s_bx1)
+    r_y_lo = torch.maximum(r_y_lo, s_by0)
+    r_y_hi = torch.minimum(r_y_hi, s_by1)
+    r_w = torch.clamp(r_x_hi - r_x_lo + 1, min=0)
+    r_h = torch.clamp(r_y_hi - r_y_lo + 1, min=0)
+    # A fill segment with winding rows but an empty column range still
+    # gets one column: its records carry the per-row crossing emission.
+    widen = (is_fill_seg & (a != 0.0) & (r_w == 0) & (r_h > 0)
+             & (s_bx0 <= s_bx1))
+    wcol = torch.minimum(torch.maximum(fx_lo, s_bx0), s_bx1)
+    r_x_lo = W(widen, wcol, r_x_lo)
+    r_x_hi = W(widen, wcol, r_x_hi)
+    r_w = W(widen, 1, r_w)
+    hit_counts = W(seg_valid, r_w * r_h, 0)
+    hit_excl, hit_incl = _exclusive_cumsum(hit_counts)
+
+    seg_flags = (is_fill_seg.to(I32) | (is_stroke_seg.to(I32) << 1)
+                 | (is_line_item.to(I32) << 2))
+    seg_i32 = torch.stack(
+        [seg_flags, r_x_lo, r_y_lo, torch.clamp(r_w, min=1), seg_item,
+         s_cand_excl, s_by0, torch.clamp(s_bw, min=1), s_bx0, s_by1,
+         s_bx1], dim=1)                                  # (S, 11)
+    # Per-segment constants of the division-free fine math.
+    lvx = ex - sx
+    lvy = ey - sy
+    s_invd = div_det(1.0, dot2_det(lvx, lvy))
+    s_m = div_det(lvx, lvy)
+    s_K = div_det(-lvy, torch.abs(lvx))
+    s_m = W(torch.abs(s_m) < _INF, s_m, 0.0)
+    s_K = W(torch.abs(s_K) < _INF, s_K, 0.0)
+    seg_rows = torch.cat(
+        [_bits(torch.stack([sx, sy, ex, ey, a, b, c, xmn[:, 0], xmn[:, 1],
+                            xmx[:, 0], xmx[:, 1], s_hw], dim=1)),
+         seg_i32,
+         _bits(torch.stack([s_invd, s_m, s_K], dim=1)),
+         hit_excl[:, None]], dim=1).contiguous()        # (S, 27)
+    return SegPre(seg_rows=seg_rows, hit_counts=hit_counts,
+                  hit_excl=hit_excl, n_segs=n_segs, n_hits=hit_incl[-1:])
+
+
 def _not_covered(what: str, item: str):
     raise NotImplementedError(
         f"{what} is not ported yet: see ROADMAP.md Queue 1, {item!r}")
@@ -181,16 +336,14 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
     starting at tile row ``row0``.
 
     ``taps``: optional dict that receives each kernel's inputs (keys
-    "candfuse", "hitfuse", "sort") -- for tests and chip_smoke.py.
+    "candfuse", "hitfuse", "sort"; "keyed" and "gatherm" as lists of
+    calls; "expand" on the device-derived segment stage) -- for tests and
+    chip_smoke.py.
     """
     if output != "entries":
         _not_covered("the dense coarse output", "dense/portable path")
     if pair not in (False, "off"):
         _not_covered("entry pairing", "pairing")
-    sp = scene.seg_pre
-    if sp is None:
-        _not_covered("the device segment derivation (seg_pre=None)",
-                     "device segment derivation")
     dev = scene.tags.device
     NI = scene.tags.shape[0]
     n_tiles = tiles_x * tiles_y
@@ -220,7 +373,12 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
     cand_valid = cand_idx < n_cand
     cand_item = ca_i[:, 24]
 
-    # ---- host-staged segment stage -------------------------------------
+    # ---- segment stage: host-staged, or derived on the device ----------
+    sp = scene.seg_pre
+    if sp is None:
+        sp = derive_seg_stage(scene, ci_in.cand_pack[:, 15:24],
+                              tile_w=tile_w, tile_h=tile_h,
+                              max_segments=max_segments, taps=taps)
     seg_rows = sp.seg_rows
     seg_f = seg_rows.view(F32)
     n_segs, n_hits = sp.n_segs, sp.n_hits
@@ -241,8 +399,9 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
         seg_rows, sp.hit_counts, sp.hit_excl, n_hits, row0, max_hits,
         **hit_kw))
     h_cand = fused["h_cand"].to(I32)
-    cand_emit = keyed_sum(fused["n_cmds"], h_cand,
-                          max_candidates).to(I32)
+    emit_args = (fused["n_cmds"][:, None].contiguous(), h_cand,
+                 max_candidates)
+    cand_emit = keyed_sum(*emit_args)[:, 0].to(I32)
 
     # ---- winding deltas -> backdrop ------------------------------------
     # Count-only diagnostic (rows whose top edge lies in [ymin, ymax]).
@@ -254,14 +413,22 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
     d_val = fused["d_val"]
     dk = torch.where(hit_valid & (d_val != 0.0), fused["d_cand"].to(I32),
                      max_candidates)
-    delta_scatter = keyed_sum(d_val, dk, max_candidates)
+    delta_args = (d_val[:, None].contiguous(), dk, max_candidates)
+    delta_scatter = keyed_sum(*delta_args)[:, 0]
     # Per-(item, row) prefix along tx: candidates are row-major per item,
     # so subtract the running total at each row start.
     csum = torch.cumsum(delta_scatter, 0)
     cand_row_start = ci[:, 3] + (cand_ty - ci[:, 5]) * torch.clamp(
         ci[:, 8], min=1)
+    # cand_row_start is nondecreasing (candidates expand item- and
+    # row-major), so the row-start base is a monotone gather.
     sb_idx = torch.clamp(cand_row_start - 1, 0, max_candidates - 1)
-    start_base = torch.where(cand_row_start > 0, csum[sb_idx.long()], 0.0)
+    csum_rows = csum[:, None]
+    (sb,) = gather_monotone(csum_rows, (sb_idx,))
+    start_base = torch.where(cand_row_start > 0, sb[:, 0], 0.0)
+    if taps is not None:
+        taps["keyed"] = [emit_args, delta_args]
+        taps.setdefault("gatherm", []).append((csum_rows, (sb_idx,)))
     backdrop = csum - start_base
 
     # ---- candidate tail commands ---------------------------------------

@@ -19,17 +19,15 @@ from __future__ import annotations
 
 import torch
 
-from piet_tpu.layout.entry_stream import (ENTRY_WORDS, W_S0_ARG, W_S0_TAG,
-                                          W_S1_ARG, W_S1_TAG)
-from piet_tpu.raster.ptcl import (CMD_BEGIN_CLIP, CMD_BEGIN_LAYER,
-                                  CMD_CIRCLE, CMD_DRAW_FILL,
-                                  CMD_DRAW_LIN_GRAD, CMD_DRAW_RAD_GRAD,
-                                  CMD_END_CLIP, CMD_END_LAYER, CMD_FILL,
-                                  CMD_FILL_EDGE, CMD_LINE, CMD_SOLID,
-                                  CMD_STROKE, CMD_WIND)
-from piet_tpu.scene.scene import MAX_GROUP_DEPTH
-
 from .. import kernels
+from ..layout.entry_stream import (ENTRY_WORDS, W_S0_ARG, W_S0_TAG, W_S1_ARG,
+                                   W_S1_TAG)
+from ..raster.ptcl import (CMD_BEGIN_CLIP, CMD_BEGIN_LAYER, CMD_CIRCLE,
+                           CMD_DRAW_FILL, CMD_DRAW_LIN_GRAD,
+                           CMD_DRAW_RAD_GRAD, CMD_END_CLIP, CMD_END_LAYER,
+                           CMD_FILL, CMD_FILL_EDGE, CMD_LINE, CMD_SOLID,
+                           CMD_STROKE, CMD_WIND)
+from ..scene.scene import MAX_GROUP_DEPTH
 from .cmd_math import (DF2_INIT, clip_alpha, edge_delta, fill_delta,
                        ieee_sqrt, line_field_sq, make_commands,
                        make_grad_commands, pack_rgba8)

@@ -27,10 +27,9 @@ from __future__ import annotations
 
 import torch
 
-from piet_tpu.layout.entry_stream import META_CLEAR_BIT
-from piet_tpu.raster.ptcl import CMD_FILL, CMD_FILL_EDGE, CMD_LINE
-
 from .. import kernels
+from ..layout.entry_stream import META_CLEAR_BIT
+from ..raster.ptcl import CMD_FILL, CMD_FILL_EDGE, CMD_LINE
 from .candfuse import fdivmod, owner_of
 from .cmd_math import div_det, sign
 

@@ -1,15 +1,15 @@
 """Host orchestration: stage a scene, bin it, rasterize it.
 
 Port of ``piet_tpu/renderer/renderer.py`` on the entry-stream path.  The
-scene is staged once as padded tensors on an explicit device
-(``prepare_scene``; the host segment stage comes from the JAX package's
-numpy ``build_seg_pre``), then a frame is ``coarse_rasterize`` ->
+scene is staged once as padded tensors on a device (``prepare_scene``,
+with the numpy host segment stage ``build_seg_pre`` unless a device
+animation derives segments per frame), then a frame is ``coarse_rasterize`` ->
 ``fine_rasterize_entries`` with the present composite fused into the fine
 pass's empty tiles.  PyTorch runs eagerly; a frame synchronizes once, when
 the capacity statistics are read.
 
 Usage:
-    r = Renderer.for_scene(scene, 1664, 1664, device="cuda")
+    r = Renderer.for_scene(scene, 1664, 1664)   # device="cuda" by default
     image = r.render(scene)        # (H, W, 4) uint8 RGBA
 """
 
@@ -20,8 +20,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from piet_tpu.config import RenderConfig
-from piet_tpu.scene.color import decode_color_linear
+from ..config import RenderConfig
+from ..scene.color import decode_color_linear
 
 from ..ops.coarse import DeviceScene, SegPre, coarse_rasterize
 from ..ops.fine import fine_rasterize_entries
@@ -60,10 +60,15 @@ def device_scene_from_numpy(leaves, device) -> DeviceScene:
     return DeviceScene(n_items=n_items, seg_pre=seg_pre, **fields)
 
 
-def prepare_scene(scene, config: RenderConfig, device) -> DeviceScene:
-    """Pad an SoA scene into capacity-sized tensors on ``device``, with the
-    host-precomputed segment stage (renderer/segstage.py)."""
-    from piet_tpu.renderer.segstage import build_seg_pre
+def prepare_scene(scene, config: RenderConfig, device="cuda",
+                  seg_pre: bool = True) -> DeviceScene:
+    """Pad an SoA scene into capacity-sized tensors on ``device``.
+
+    ``seg_pre=True`` also stages the host-precomputed segment stage
+    (renderer/segstage.py), bitwise equal to the device derivation; pass
+    False for paths that move geometry on the device (scene/affine.py,
+    scene/animate.py), whose coarse pass then derives segments itself."""
+    from .segstage import build_seg_pre
 
     ni, np_ = scene.n_items, scene.n_points
     if ni > config.max_items:
@@ -86,8 +91,37 @@ def prepare_scene(scene, config: RenderConfig, device) -> DeviceScene:
         points=pad(scene.points, config.max_points),
         flags=pad(scene.flags, NI), clips=pad(scene.clips, NI),
         grads=pad(scene.grads, NI), n_items=np.int32(ni),
-        seg_pre=build_seg_pre(scene, config))
+        seg_pre=build_seg_pre(scene, config) if seg_pre else None)
     return device_scene_from_numpy(host, device)
+
+
+def frame_scalar(t, device) -> torch.Tensor:
+    """A frame's ``t`` as a 0-d f32 tensor on ``device``.  A python number
+    becomes a fill kernel's argument: ``torch.as_tensor(t, device="cuda")``
+    is a blocking host-to-device copy, which PyTorch follows with a stream
+    synchronize, so every frame would wait for the one before."""
+    if isinstance(t, torch.Tensor):
+        return t.to(device=device, dtype=torch.float32)
+    return torch.full((), float(t), dtype=torch.float32, device=device)
+
+
+def fetch_scene(dev: DeviceScene, n_items: int, n_points: int):
+    """A staged (or device-computed) scene -> host Scene of its live
+    prefix: how a device animation frame is handed to the numpy oracle."""
+    from ..scene.scene import Scene
+
+    def host(t, n, as_u32=False):
+        a = t[:n].cpu().numpy()
+        return a.view(np.uint32) if as_u32 else a
+
+    return Scene(
+        tags=host(dev.tags, n_items),
+        colors=host(dev.colors_u32, n_items, True),
+        widths=host(dev.widths, n_items), bboxes=host(dev.bboxes, n_items),
+        pt_offset=host(dev.pt_offset, n_items),
+        n_pts=host(dev.n_pts, n_items), points=host(dev.points, n_points),
+        flags=host(dev.flags, n_items, True), clips=host(dev.clips, n_items),
+        grads=host(dev.grads, n_items))
 
 
 def _solid_to_present_u32(solid: torch.Tensor) -> torch.Tensor:
@@ -122,11 +156,11 @@ def render_slab(scene: DeviceScene, config: RenderConfig, *, tiles_y: int,
 class Renderer:
     """User-facing renderer: a config and the device it renders on.
 
-    ``device`` is required ("cpu" or "cuda[:n]"): a CUDA renderer without a
-    CUDA device raises instead of running on the CPU.
+    ``device`` is "cuda" (the default), "cuda:n" or "cpu": a CUDA renderer
+    without a CUDA device raises instead of running on the CPU.
     """
 
-    def __init__(self, config: RenderConfig, device):
+    def __init__(self, config: RenderConfig, device="cuda"):
         dev = torch.device(device)
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Renderer(device='cuda'): CUDA is not "
@@ -138,11 +172,11 @@ class Renderer:
         self.last_stats: Optional[Dict[str, int]] = None
 
     @classmethod
-    def for_scene(cls, scene, width: int, height: int, *, device,
+    def for_scene(cls, scene, width: int, height: int, *, device="cuda",
                   bucket: bool = True, **config_kw) -> "Renderer":
         """Renderer with record capacities fitted to ``scene``
         (renderer/capacity.py; bucket=True leaves headroom)."""
-        from piet_tpu.renderer.capacity import fit_capacities
+        from .capacity import fit_capacities
         base = RenderConfig(width=width, height=height, **config_kw)
         return cls(fit_capacities(scene, base, bucket=bucket), device=device)
 
@@ -151,7 +185,9 @@ class Renderer:
 
     def render_device(self, dev: DeviceScene):
         """One frame of a staged scene: (H, W) int32 RGBA8 bits and the
-        stats tensors; no host synchronization."""
+        stats tensors; no host synchronization.  A scene without
+        ``seg_pre`` (a device animation frame) has its segments derived
+        on the device."""
         cfg = self.config
         img, stats = render_slab(dev, cfg, tiles_y=cfg.tiles_y, row0=0)
         return img[:cfg.height, :cfg.width], stats

@@ -18,16 +18,18 @@ import torch
 # each, or torch's pools oversubscribe them and stall every worker.
 torch.set_num_threads(1)
 
-from piet_tpu.config import RenderConfig
-from piet_tpu.raster.cpu_fine import cpu_render_scene
-from piet_tpu.renderer.capacity import fit_capacities
-from piet_tpu.renderer.segstage import build_seg_pre
-from piet_tpu.scene import fixtures
-from piet_tpu.scene.svg import make_tiger
 from piet_tpu_torch import kernels
-from piet_tpu_torch.ops import candfuse, coarse, fine, hitfuse, sort
+from piet_tpu_torch.config import RenderConfig
+from piet_tpu_torch.ops import (candfuse, coarse, expand, fine, gatherm,
+                                hitfuse, keyed, sort)
+from piet_tpu_torch.raster.cpu_fine import cpu_render_scene
+from piet_tpu_torch.renderer.capacity import fit_capacities
 from piet_tpu_torch.renderer.renderer import (Renderer, _solid_to_present_u32,
-                                              prepare_scene, render_slab)
+                                              fetch_scene, prepare_scene,
+                                              render_slab)
+from piet_tpu_torch.renderer.segstage import build_seg_pre
+from piet_tpu_torch.scene import affine, animate, fixtures
+from piet_tpu_torch.scene.svg import make_tiger
 
 
 def test_dispatch_rule():
@@ -87,6 +89,13 @@ def test_plain_calls_do_not_count_launches():
     assert all(v == 0 for v in kernels.LAUNCHES.values())
 
 
+def test_every_kernel_has_an_entry_point_and_a_counter():
+    """One C entry point per .cu source, one launch counter per kernel."""
+    names = {p.stem for p in kernels.CSRC.glob("*.cu")}
+    assert names == set(kernels.LAUNCHES)
+    assert len(kernels._SIGNATURES) == len(names)
+
+
 # ---- on the card ----------------------------------------------------------
 
 @pytest.fixture
@@ -134,10 +143,123 @@ def test_cuda_kernels_equal_plain_versions(cuda_inputs):
                        fine.fine_rasterize_entries_plain(*args, **kw))
 
 
+def _anim_taps(device):
+    """Kernel inputs of one device-animation frame (seg_pre=None), at a
+    small size."""
+    tmpl = animate.template_scene(size=256, n=24, seed=5)
+    cfg = fit_capacities(tmpl, RenderConfig(width=256, height=256,
+                                            tile_height=16, tile_width=128),
+                         bucket=True)
+    base = prepare_scene(tmpl, cfg, device, seg_pre=False)
+    params = animate.host_params(size=256, n=24, seed=5, device=device)
+    taps = {}
+    coarse.coarse_rasterize(
+        animate.animate_device_scene(base, params, 0.7),
+        tiles_x=cfg.tiles_x, tiles_y=cfg.tiles_y, tile_w=cfg.tile_width,
+        tile_h=cfg.tile_height, max_segments=cfg.max_segments,
+        max_hits=cfg.max_hits, max_candidates=cfg.max_candidates, taps=taps)
+    return taps
+
+
+@pytest.mark.cuda
+def test_cuda_engines_equal_plain_versions():
+    """expand, keyed and gatherm on the animation path's own inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    taps = _anim_taps("cuda")
+    assert _same_bits(expand.expand_rows(*taps["expand"]),
+                      expand.expand_rows_plain(*taps["expand"]))
+    for args in taps["keyed"]:
+        assert _same_bits(keyed.keyed_sum(*args), keyed.keyed_sum_plain(*args))
+    assert len(taps["gatherm"]) == 2
+    for rows, idxs in taps["gatherm"]:
+        for g, w in zip(gatherm.gather_monotone(rows, idxs),
+                        gatherm.gather_monotone_plain(rows, idxs)):
+            assert _same_bits(g, w)
+
+
+@pytest.mark.cuda
+def test_cuda_engines_edge_cases():
+    """Bit patterns, zero counts, dropped keys and -0.0 sums on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    words = torch.tensor([[0x7FC00001, -2147483648, 1, 0x7F800000],
+                          [0x00000003, 0x7FFFFFFF, -1, 0x00800000],
+                          [5, 6, 7, 8]], dtype=torch.int32)
+    rows = words.view(torch.float32).cuda()
+    counts = torch.tensor([2, 0, 3], dtype=torch.int32).cuda()
+    got = expand.expand_rows(rows, counts, 8)
+    assert _same_bits(got, expand.expand_rows_plain(rows, counts, 8))
+    assert torch.equal(got.view(torch.int32)[5:], torch.zeros(
+        (3, 4), dtype=torch.int32, device="cuda"))
+    vals = torch.tensor([[-0.0], [1.0], [-1.0], [2.0], [-0.0]]).cuda()
+    keys = torch.tensor([0, 1, 1, 7, -3], dtype=torch.int32).cuda()
+    out = keyed.keyed_sum(vals, keys, 3)
+    assert _same_bits(out, keyed.keyed_sum_plain(vals, keys, 3))
+    assert out.view(torch.int32).eq(0).all()     # +0.0 everywhere
+    idx = (torch.tensor([0, 0, 2, 9], dtype=torch.int32).cuda(),
+           torch.tensor([1, 2, 2, 2], dtype=torch.int32).cuda())
+    for g, w in zip(gatherm.gather_monotone(rows, idx),
+                    gatherm.gather_monotone_plain(rows, idx)):
+        assert _same_bits(g, w)
+
+
+@pytest.mark.cuda
+def test_cuda_alpha_linear_is_correctly_rounded():
+    """Every alpha code's linear value on the card equals the host
+    decode's code / 255 (a division by a host scalar would not)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    codes = torch.arange(256, dtype=torch.int32)
+    want = (np.arange(256).astype(np.float32) / np.float32(255.0))
+    got = animate.alpha_linear(codes.cuda()).cpu().numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [0.0, 1.3])
+def test_cuda_animated_frame_equals_oracle(t):
+    """A device-animation frame on the card, bitwise against the numpy
+    oracle fed the frame's own device-computed arrays."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    tmpl = animate.template_scene(size=256, n=24, seed=5)
+    cfg = fit_capacities(tmpl, RenderConfig(width=256, height=256,
+                                            tile_height=16, tile_width=128),
+                         bucket=True)
+    render_t, _ = animate.make_animated_render_fn(cfg, size=256, n=24,
+                                                  seed=5)
+    kernels.reset_launches()
+    img, _ = render_t(t)
+    assert all(v > 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
+    got = img.cpu().numpy().view(np.uint8).reshape(256, 256, 4)
+    frame = fetch_scene(render_t.scene_at(t), tmpl.n_items, tmpl.n_points)
+    np.testing.assert_array_equal(got, cpu_render_scene(frame, cfg))
+
+
+@pytest.mark.cuda
+def test_cuda_affine_frame_equals_oracle():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    scene = fixtures.get_scene("gradients", size=256)
+    cfg = fit_capacities(scene, RenderConfig(width=256, height=256,
+                                             tile_height=16, tile_width=128),
+                         bucket=True)
+    cfg = dataclasses.replace(cfg, max_hits=8 * cfg.max_hits,
+                              max_candidates=8 * cfg.max_candidates)
+    render_t = affine.make_affine_render_fn(
+        cfg, scene, lambda t: affine.rotation_about(128.0, 128.0, t, 0.9))
+    img, _ = render_t(0.5)
+    got = img.cpu().numpy().view(np.uint8).reshape(256, 256, 4)
+    frame = fetch_scene(render_t.scene_at(0.5), scene.n_items,
+                        scene.n_points)
+    np.testing.assert_array_equal(got, cpu_render_scene(frame, cfg))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("row0", [0, 3, 5])
 def test_cuda_slab_bitwise_equals_oracle_rows(row0):
-    """The four kernels on a tile-row window [row0, row0 + 3)."""
+    """The kernels on a tile-row window [row0, row0 + 3)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     scene = fixtures.get_scene("clip_star")
@@ -175,7 +297,7 @@ CUDA_SCENES = [
 @pytest.mark.parametrize("name,make,size,th", CUDA_SCENES,
                          ids=[s[0] for s in CUDA_SCENES])
 def test_cuda_render_bitwise_equals_oracle(name, make, size, th):
-    """Every command class through the four kernels on the card: fills,
+    """Every command class through the kernels on the card: fills,
     strokes, circles, solids, clips, layers, gradients, winding carries."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -184,6 +306,9 @@ def test_cuda_render_bitwise_equals_oracle(name, make, size, th):
                            tile_height=th, tile_width=128)
     kernels.reset_launches()
     got = r.render(scene)
-    assert all(v > 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
+    # A static scene stages its segments on the host: no expansion.
+    launches = dict(kernels.LAUNCHES)
+    assert launches.pop("expand") == 0
+    assert all(v > 0 for v in launches.values()), kernels.LAUNCHES
     np.testing.assert_array_equal(got, cpu_render_scene(scene, r.config),
                                   err_msg=name)
