@@ -13,27 +13,39 @@ and exits non-zero:
   3. every kernel against its plain PyTorch version on the same inputs,
      bitwise (tolerance 0): candfuse, hitfuse, sort and fine on the
      static 1664^2 tiger's own inputs; expand, keyed and gatherm on the
-     affine-animated tiger's (segments derived on the device);
+     affine-animated tiger's (segments derived on the device); fine_dense
+     on the static tiger's dense PTCL in both instantiations (fine_rasterize
+     and fine_rasterize_xla) and, in the group one, on the clip, gradient
+     and multi-subpath fixtures at 1024^2;
   4. the static path: Renderer.for_scene(tiger, 1664, 1664).render() and
      the same at 3840x2160, with the launch counters reset just before
      and read just after each; the images must equal the numpy oracle
-     bitwise, and every kernel of the path (all but expand) must have run;
+     bitwise, and every kernel of the path (all but expand and fine_dense)
+     must have run;
+  4b. the dense path (fine_impl="dense"): the same two tiger frames
+     against the same oracle images, with fine_dense run, entries-fine
+     not run and no PTCL overflow; the three group fixtures at 1024^2; one
+     affine-tiger frame; and render_sequence, render_packed_u32 and
+     render_updated on animated-fixture frames, each equal to render();
   5. the device-animation paths, 2 frames each: the tiger under the
      affine spin/zoom at 1664^2 (make_affine_render_fn) and the animated
      fixture at 1024^2 (make_animated_render_fn).  Each frame must equal
      the numpy oracle rendered from that frame's own device-computed
-     arrays, bitwise, with no capacity overflow; all seven kernels must
-     have run;
-  6. timing with CUDA events: ms/frame on every path, device ms with the
-     launch overhead hidden, a torch.profiler trace (device-busy share and
-     top device ops), and each kernel beside its plain version, its bound
-     and, where one PyTorch call computes the same function, that call.
+     arrays, bitwise, with no capacity overflow; all seven kernels of the
+     entries route must have run;
+  6. timing with CUDA events: ms/frame on every path (both routes of the
+     static tiger), device ms with the launch overhead hidden, a
+     torch.profiler trace (device-busy share and top device ops), and each
+     kernel beside its plain version, its bound and, where one PyTorch call
+     computes the same function, that call.
 
-The line before the last is the kernel table as JSON; the last line is
-{"ok": true, "device": {...}}.  Exits non-zero without a result when no
-CUDA device is present.
+The line before the last is the kernel table as JSON, each kernel with
+the path whose run gave its launch count; the last line is {"ok": true,
+"device": {...}}.  Exits non-zero without a result when no CUDA device is
+present.
 """
 
+import itertools
 import json
 import math
 import statistics
@@ -193,7 +205,7 @@ def profile_frames(render_one, card: str, tag: str, frames: int = 10,
               f"launches: {name[:90]}", flush=True)
 
 
-def affine_tiger(scene, dev):
+def affine_tiger(scene, dev, fine_impl="entries"):
     """The tiger spinning and zooming about the 1664^2 viewport centre,
     capacities fitted over 5 host-transformed samples of the 24-frame
     sweep (the JAX package's `animate --affine`)."""
@@ -224,7 +236,8 @@ def affine_tiger(scene, dev):
         a = t * (2.0 * math.pi / PERIOD)
         return affine.rotation_about(cx, cy, a, 1.0 + ZOOM * torch.sin(a))
 
-    render_t = affine.make_affine_render_fn(cfg, scene, mats_fn, device=dev)
+    render_t = affine.make_affine_render_fn(cfg, scene, mats_fn, device=dev,
+                                            fine_impl=fine_impl)
     return cfg, render_t, scene.n_items, scene.n_points
 
 
@@ -254,6 +267,18 @@ def animated_fixture(dev):
     return cfg, render_t, tmpl.n_items, tmpl.n_points
 
 
+def dense_inputs(staged, cfg):
+    """(counts (tiles_y, tiles_x), tags, args, fine kwargs): the dense PTCL
+    of a staged scene, as the dense route hands it to its interpreter."""
+    from piet_tpu_torch.ops import coarse
+    out = coarse.coarse_rasterize(staged, output="dense",
+                                  cmd_capacity=cfg.cmd_capacity,
+                                  **coarse_kw(cfg))
+    return (out.counts.reshape(cfg.tiles_y, cfg.tiles_x), out.tags, out.args,
+            dict(tile_h=cfg.tile_height, tile_w=cfg.tile_width,
+                 cmd_capacity=cfg.cmd_capacity))
+
+
 def coarse_kw(cfg) -> dict:
     return dict(tiles_x=cfg.tiles_x, tiles_y=cfg.tiles_y,
                 tile_w=cfg.tile_width, tile_h=cfg.tile_height,
@@ -276,11 +301,12 @@ def main() -> int:
     import torch.nn.functional as F
     from piet_tpu_torch import kernels
     from piet_tpu_torch.host import cpu_render_scene, make_tiger
-    from piet_tpu_torch.ops import (candfuse, coarse, expand, fine, gatherm,
-                                    hitfuse, keyed, sort)
+    from piet_tpu_torch.ops import (candfuse, coarse, expand, fine, fine_xla,
+                                    gatherm, hitfuse, keyed, sort)
     from piet_tpu_torch.renderer.renderer import (Renderer,
                                                   _solid_to_present_u32,
                                                   fetch_scene)
+    from piet_tpu_torch.scene import fixtures
 
     # ---- 2. build ------------------------------------------------------
     t0 = time.perf_counter()
@@ -324,6 +350,22 @@ def main() -> int:
     exp_args = atap["expand"]
     keyed_calls = atap["keyed"]
     gather_calls = atap["gatherm"]
+    # The dense PTCLs: the static tiger's, and the group fixtures' at
+    # 1024^2 (clips and layers, gradients, multi-subpath winding carries).
+    dense_in = [dense_inputs(staged, cfg)]
+    group_scenes = {name: make(1024) for name, make in (
+        ("clip_star", fixtures.make_clip_star),
+        ("gradient_demo", fixtures.make_gradient_demo),
+        ("holes_demo", fixtures.make_holes_demo))}
+    group_renderers = {
+        name: Renderer.for_scene(sc, 1024, 1024, tile_height=32,
+                                 tile_width=128, device=dev,
+                                 fine_impl="dense")
+        for name, sc in group_scenes.items()}
+    for name, gr in group_renderers.items():
+        dense_in.append(dense_inputs(gr.prepare(group_scenes[name]),
+                                     gr.config))
+    tiger_dense = dense_in[0]
 
     # The one PyTorch call computing the same function, where there is
     # one (timed beside the kernel; the port never calls it).
@@ -351,6 +393,10 @@ def main() -> int:
     fine_bytes = (nbytes(*fine_args[:3])
                   + row_bytes(int(entries.n_entries.sum()), fine_args[3])
                   + img_bytes)
+    # The dense interpreter reads each live command's 13 words once (a
+    # tag and 12 operands), the counts, and writes the image.
+    dense_cmds = int(tiger_dense[0].sum())
+    dense_bytes = dense_cmds * 13 * 4 + nbytes(tiger_dense[0]) + img_bytes
     ex_live = int((ex_counts > 0).sum())
     exp_bytes = (row_bytes(ex_live, ex_rows, ex_counts, exp_args[3])
                  + ex_cap * ex_rows.shape[1] * 4)
@@ -427,6 +473,27 @@ def main() -> int:
                                                         gather_lib_idx)
                                   for i in ii),
             bytes=gather_bytes),
+        # Compared in both instantiations (the group one on all four
+        # PTCLs); timed as the dense frame runs it: the group one on the
+        # tiger.
+        "fine_dense": dict(
+            route="cuda", source="piet_tpu_torch/csrc/fine_dense.cu",
+            replaces="piet_tpu/ops/fine.py:65",
+            run=lambda: (fine.fine_rasterize(*tiger_dense[:3],
+                                             **tiger_dense[3]),) + tuple(
+                fine_xla.fine_rasterize_xla(*d[:3], **d[3])
+                for d in dense_in),
+            plain=lambda: (fine.fine_rasterize_plain(*tiger_dense[:3],
+                                                     **tiger_dense[3]),)
+            + tuple(fine_xla.fine_rasterize_xla_plain(*d[:3], **d[3])
+                    for d in dense_in),
+            time=lambda: (fine_xla.fine_rasterize_xla(*tiger_dense[:3],
+                                                      **tiger_dense[3]),),
+            time_plain=lambda: (fine_xla.fine_rasterize_xla_plain(
+                *tiger_dense[:3], **tiger_dense[3]),),
+            library=None,
+            bytes=dense_bytes,
+            ops=dense_cmds * tile_px * FINE_OPS_PER_PIXEL_CMD),
     }
     for name, k in table.items():
         got = k["run"]()
@@ -451,6 +518,7 @@ def main() -> int:
           flush=True)
 
     # ---- 4. the static path, bitwise against the numpy oracle ---------
+    golds = {}
     for (w, h) in ((1664, 1664), (3840, 2160)):
         r = Renderer.for_scene(scene, w, h, tile_height=32, tile_width=128,
                                device=dev)
@@ -459,7 +527,7 @@ def main() -> int:
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
         t0 = time.perf_counter()
-        gold = cpu_render_scene(scene, r.config)
+        gold = golds[w, h] = cpu_render_scene(scene, r.config)
         t_gold = time.perf_counter() - t0
         n_bad = int((img != gold).any(-1).sum())
         print(f"render {w}x{h}: {n_bad} pixels differ from the numpy oracle "
@@ -467,10 +535,77 @@ def main() -> int:
               f"live entries {r.last_stats['live_entries']}", flush=True)
         assert img.shape == (h, w, 4) and img.dtype == np.uint8
         assert n_bad == 0, f"{w}x{h} image differs from the oracle"
-        # A static scene stages its segments on the host: no expansion.
+        # A static scene stages its segments on the host: no expansion;
+        # the entries route runs no dense interpreter.
+        assert launches["expand"] == launches["fine_dense"] == 0, launches
+        assert all(v > 0 for k, v in launches.items()
+                   if k not in ("expand", "fine_dense")), launches
+
+    # ---- 4b. the dense path ----------------------------------------------
+    dense_launches = {}
+    for (w, h) in ((1664, 1664), (3840, 2160)):
+        r = Renderer.for_scene(scene, w, h, tile_height=32, tile_width=128,
+                               device=dev, fine_impl="dense")
+        kernels.reset_launches()
+        img = r.render(scene)
+        torch.cuda.synchronize()
+        launches = dense_launches[w, h] = dict(kernels.LAUNCHES)
+        n_bad = int((img != golds[w, h]).any(-1).sum())
+        st = r.last_stats
+        print(f"render dense {w}x{h}: {n_bad} pixels differ from the numpy "
+              f"oracle; launches {launches}; live commands "
+              f"{st['live_cmds']}, max per tile {st['max_tile_cmds']} of "
+              f"{r.config.cmd_capacity}, overflow {st['overflow_cmds']}, "
+              f"bail tiles {st['bail_tiles']}", flush=True)
+        assert n_bad == 0, f"dense {w}x{h} image differs from the oracle"
+        assert st["overflow_cmds"] == 0, st
+        assert launches["fine_dense"] > 0 and launches["fine"] == 0, launches
         assert launches["expand"] == 0, launches
-        assert all(v > 0 for k, v in launches.items() if k != "expand"), \
-            launches
+        assert all(v > 0 for k, v in launches.items()
+                   if k not in ("expand", "fine")), launches
+    for name, gr in group_renderers.items():
+        sc = group_scenes[name]
+        kernels.reset_launches()
+        img = gr.render(sc)
+        torch.cuda.synchronize()
+        n_bad = int((img != cpu_render_scene(sc, gr.config)).any(-1).sum())
+        print(f"render dense {name} 1024x1024: {n_bad} pixels differ from "
+              f"the numpy oracle; fine_dense launches "
+              f"{kernels.LAUNCHES['fine_dense']}, live commands "
+              f"{gr.last_stats['live_cmds']}", flush=True)
+        assert n_bad == 0, f"dense {name} image differs from the oracle"
+        assert kernels.LAUNCHES["fine_dense"] == 1
+    t = T_FRAMES[1]
+    aff_dense = affine_tiger(scene, dev, fine_impl="dense")[1]
+    kernels.reset_launches()
+    img, stats = aff_dense(t)
+    got = img.cpu().numpy().view(np.uint8).reshape(aff_cfg.height,
+                                                   aff_cfg.width, 4)
+    gold = cpu_render_scene(fetch_scene(aff_dense.scene_at(t), aff_ni,
+                                        aff_np), aff_cfg)
+    n_bad = int((got != gold).any(-1).sum())
+    print(f"render dense affine tiger 1664x1664 t={t:.4f}: {n_bad} pixels "
+          f"differ from the numpy oracle on the frame's own arrays; "
+          f"launches {dict(kernels.LAUNCHES)}; overflow "
+          f"{int(stats['overflow_cmds'])}", flush=True)
+    assert n_bad == 0 and int(stats["overflow_cmds"]) == 0
+    assert all(v > 0 for k, v in kernels.LAUNCHES.items() if k != "fine")
+    # The renderer's other entry points on host-built animated frames.
+    from piet_tpu_torch.scene.fixtures import make_animated_frame
+    frames = [make_animated_frame(t) for t in T_FRAMES]
+    ar = Renderer(anim_cfg, dev, fine_impl="dense")
+    seq = ar.render_sequence(frames)
+    same_seq = all(np.array_equal(seq[i], ar.render(f))
+                   for i, f in enumerate(frames))
+    same_packed = torch.equal(ar.render_packed_u32(frames[0]),
+                              ar.render_u32(frames[0]))
+    same_updated = torch.equal(ar.render_updated(frames[1]),
+                               ar.render_u32(frames[1]))
+    print(f"dense entry points on the animated fixture 1024x1024: "
+          f"render_sequence ({len(frames)} frames) equal to render(): "
+          f"{same_seq}; render_packed_u32: {same_packed}; render_updated "
+          f"(points moved): {same_updated}", flush=True)
+    assert same_seq and same_packed and same_updated
 
     # ---- 5. the device-animation paths ---------------------------------
     anim_launches = {}
@@ -506,34 +641,48 @@ def main() -> int:
             assert int((got[..., 3] != 0).sum()) > 0
         print(f"launches {tag} ({len(T_FRAMES)} frames): {launches}",
               flush=True)
-        assert all(v > 0 for v in launches.values()), launches
+        assert launches["fine_dense"] == 0, launches
+        assert all(v > 0 for k, v in launches.items()
+                   if k != "fine_dense"), launches
 
     # ---- 6. timing ------------------------------------------------------
-    for (w, h) in ((1664, 1664), (3840, 2160)):
+    for impl, (w, h) in itertools.product(("entries", "dense"),
+                                          ((1664, 1664), (3840, 2160))):
         r = Renderer.for_scene(scene, w, h, tile_height=32, tile_width=128,
-                               device=dev)
+                               device=dev, fine_impl=impl)
         d = r.prepare(scene)
-        rk = coarse_kw(r.config)
         frame = frame_ms(lambda: r.render_device(d), reps=20)
         # The same frames with the host's launch overhead hidden: what the
         # device itself spends per frame.
         frame_dev = time_ms(lambda: r.render_device(d), reps=5,
                             spin=8 * SPIN_CYCLES)
-        ce = coarse.coarse_rasterize(d, **rk)
-        args = (ce.first, ce.n_entries, _solid_to_present_u32(ce.solid),
-                ce.stream)
-        fk = dict(tile_h=r.config.tile_height, tile_w=r.config.tile_width,
-                  tiles_x=r.config.tiles_x)
+        if impl == "entries":
+            rk = coarse_kw(r.config)
+            ce = coarse.coarse_rasterize(d, **rk)
+            args = (ce.first, ce.n_entries, _solid_to_present_u32(ce.solid),
+                    ce.stream)
+            fk = dict(tile_h=r.config.tile_height,
+                      tile_w=r.config.tile_width, tiles_x=r.config.tiles_x)
+
+            def fine_fn():
+                return fine.fine_rasterize_entries(*args, **fk)
+        else:
+            rk = dict(coarse_kw(r.config), output="dense",
+                      cmd_capacity=r.config.cmd_capacity)
+            counts, tags, dargs, fk = dense_inputs(d, r.config)
+
+            def fine_fn():
+                return fine_xla.fine_rasterize_xla(counts, tags, dargs, **fk)
         t_coarse = frame_ms(lambda: coarse.coarse_rasterize(d, **rk),
                             reps=20)
-        t_fine = frame_ms(lambda: fine.fine_rasterize_entries(*args, **fk),
-                          reps=20)
+        t_fine = frame_ms(fine_fn, reps=20)
         wall = wall_ms(lambda: r.render_device(d))
-        print(f"timing {w}x{h} [{card}]: {frame:.3f} ms/frame (median of 20, "
+        tag = f"{impl} {w}x{h}"
+        print(f"timing {tag} [{card}]: {frame:.3f} ms/frame (median of 20, "
               f"CUDA events per frame); pipelined wall {wall:.3f} ms/frame; "
               f"device {frame_dev:.3f} ms/frame; coarse {t_coarse:.3f} ms, "
               f"fine {t_fine:.3f} ms", flush=True)
-        profile_frames(lambda: r.render_device(d), card, f"{w}x{h}")
+        profile_frames(lambda: r.render_device(d), card, tag)
 
     for tag, render_t in (("affine tiger 1664x1664", aff_render),
                           ("animated 1024x1024", anim_render)):
@@ -548,8 +697,12 @@ def main() -> int:
         profile_frames(lambda: render_t(t), card, tag)
 
     for name, k in table.items():
-        k["ms"] = time_ms(k["run"], reps=20, warm=2)
-        k["plain_ms"] = time_ms(k["plain"], reps=3 if name == "fine" else 20)
+        k["ms"] = time_ms(k.get("time", k["run"]), reps=20, warm=2)
+        # The plain interpreters take seconds a call: few reps.
+        plain_reps = {"fine": 3, "fine_dense": 1}.get(name, 20)
+        k["plain_ms"] = time_ms(k.get("time_plain", k["plain"]),
+                                reps=plain_reps, warm=0 if plain_reps == 1
+                                else 1)
         k["library_ms"] = (time_ms(k["library"], reps=20, warm=2)
                            if k["library"] else None)
         k["bound_ms"], k["bound_by"] = bound(k["bytes"], k.get("ops", 0.0))
@@ -561,10 +714,26 @@ def main() -> int:
               f"{k['bytes']} B, {k.get('ops', 0)} f32 ops; mean of "
               f"back-to-back calls, all of one frame's calls)", flush=True)
 
-    main_launches = anim_launches["affine tiger 1664x1664"]
+    # The dense kernel's other instantiation (fine_rasterize, the TPU
+    # kernel's own tag map), on the same PTCL.
+    t_ng = time_ms(lambda: fine.fine_rasterize(*tiger_dense[:3],
+                                               **tiger_dense[3]),
+                   reps=20, warm=2)
+    print(f"timing kernel fine_dense, non-group instantiation [{card}]: "
+          f"{t_ng:.4f} ms device on the same tiger PTCL", flush=True)
+
+    # Each kernel's launches on a path that runs it: the affine tiger's two
+    # frames (entries route) for the seven, one dense static tiger frame
+    # for fine_dense.
+    paths = {name: ("affine tiger 1664x1664, 2 frames, entries route",
+                    anim_launches["affine tiger 1664x1664"][name])
+             for name in table}
+    paths["fine_dense"] = ("static tiger 1664x1664, 1 frame, dense route",
+                           dense_launches[1664, 1664]["fine_dense"])
     print(json.dumps({"kernels": [
         {"name": name, "route": k["route"], "source": k["source"],
-         "replaces": k["replaces"], "launches": main_launches[name],
+         "replaces": k["replaces"], "path": paths[name][0],
+         "launches": paths[name][1],
          "max_abs_err": k["max_abs_err"], "ms": k["ms"],
          "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
          "bound_by": k["bound_by"], "library_ms": k["library_ms"]}

@@ -165,6 +165,132 @@ __device__ __forceinline__ float clip_cov(const float* a, float X, float Y) {
   return covx * covy;
 }
 
+// One pixel's interpreter state and the command evaluators of
+// ops/cmd_math.py::make_commands / make_grad_commands, shared by the fine
+// kernels.  The distance field is kept SQUARED (df2): a line takes the
+// min of squared distances and a stroke takes the one correctly rounded
+// sqrt of the min.  sqrt is monotone, so min(sqrt a, sqrt b) ==
+// sqrt(min(a, b)) bit for bit, and sqrt(DF2_INIT) == DF_INIT.
+//
+// kStack: the clip-coverage and saved-rgb stacks of the group commands
+// (MAX_GROUP_DEPTH each, in registers and local memory).  With it, every
+// draw's alpha is multiplied by the open clip's coverage, as make_commands
+// does when given ``cov``; without it there is no such multiply.
+template <bool kStack>
+struct PixelState {
+  float r = 1.f, g = 1.f, b = 1.f, df2 = DF2_INIT, area = 0.f;
+  float cov[kStack ? MAX_GROUP_DEPTH + 1 : 1];
+  float svr[kStack ? MAX_GROUP_DEPTH : 1], svg[kStack ? MAX_GROUP_DEPTH : 1],
+      svb[kStack ? MAX_GROUP_DEPTH : 1];
+  int dclip = 0, dlayer = 0;
+  float X, Y;
+
+  // ``saved``: the initial saved-rgb planes (1 in the entry-stream kernel,
+  // 0 in the dense group interpreter, as their JAX counterparts start).
+  __device__ __forceinline__ PixelState(float x, float y, float saved)
+      : X(x), Y(y) {
+#pragma unroll
+    for (int d = 0; d < (kStack ? MAX_GROUP_DEPTH + 1 : 1); ++d) cov[d] = 1.f;
+#pragma unroll
+    for (int d = 0; d < (kStack ? MAX_GROUP_DEPTH : 1); ++d)
+      svr[d] = svg[d] = svb[d] = saved;
+  }
+
+  __device__ __forceinline__ float stack_cov(float alpha) const {
+    return kStack ? alpha * cov[dclip] : alpha;
+  }
+  __device__ __forceinline__ void blend(float fr, float fg, float fb,
+                                        float w) {
+    r = r + (fr - r) * w;
+    g = g + (fg - g) * w;
+    b = b + (fb - b) * w;
+  }
+
+  __device__ __forceinline__ void circle(const float* a) {
+    const float cx = a[0] + 0.5f * (a[2] - a[0]);
+    const float cy = a[1] + 0.5f * (a[3] - a[1]);
+    const float dx = X - cx, dy = Y - cy;
+    const float rad = ieee_sqrt((dx * dx) + (dy * dy));
+    const float circle_r = tmin(cx - a[0], cy - a[1]);
+    float alpha = sat(circle_r - rad);
+    alpha = stack_cov(alpha * clip_cov(a, X, Y));
+    const float keep = 1.f - alpha;
+    r = r * keep;
+    g = g * keep;
+    b = b * keep;
+  }
+  __device__ __forceinline__ void line(const float* a) {
+    df2 = tmin(df2, line_field_sq(a, X, Y));
+  }
+  __device__ __forceinline__ void fill(const float* a) {
+    float d;
+    if (fill_delta(a, X, Y, &d)) area = area + d;
+  }
+  __device__ __forceinline__ void stroke(const float* a) {
+    const float df = ieee_sqrt(df2);
+    float alpha = sat(a[0] + 0.5f - df);
+    alpha = stack_cov(alpha * clip_cov(a, X, Y));
+    blend(a[1], a[2], a[3], a[4] * alpha);
+    df2 = DF2_INIT;
+  }
+  __device__ __forceinline__ void fill_edge(const float* a) {
+    area = area + edge_delta(a, Y);
+  }
+  __device__ __forceinline__ void draw_fill(const float* a) {
+    const float x = area + a[0];
+    float alpha = clip_alpha(x, a[5]);
+    alpha = stack_cov(alpha * clip_cov(a, X, Y));
+    blend(a[1], a[2], a[3], a[4] * alpha);
+    area = 0.f;
+  }
+  __device__ __forceinline__ void solid(const float* a) {
+    const float alpha = stack_cov(1.f * clip_cov(a, X, Y));
+    blend(a[0], a[1], a[2], a[3] * alpha);
+  }
+  __device__ __forceinline__ void begin_clip(const float* a) {
+    const float x = area + a[0];
+    const float ca = clip_alpha(x, a[1]);
+    const int nd = min(dclip + 1, MAX_GROUP_DEPTH);
+    cov[nd] = cov[dclip] * ca;
+    dclip = nd;
+    area = 0.f;
+  }
+  __device__ __forceinline__ void end_clip() { dclip = max(dclip - 1, 0); }
+  __device__ __forceinline__ void begin_layer() {
+    const int ld = min(dlayer, MAX_GROUP_DEPTH - 1);
+    svr[ld] = r;
+    svg[ld] = g;
+    svb[ld] = b;
+    dlayer = ld + 1;
+  }
+  __device__ __forceinline__ void end_layer(const float* a) {
+    const float alpha = a[0];
+    const int ld = max(dlayer - 1, 0);
+    r = svr[ld] + (r - svr[ld]) * alpha;
+    g = svg[ld] + (g - svg[ld]) * alpha;
+    b = svb[ld] + (b - svb[ld]) * alpha;
+    dlayer = ld;
+  }
+  __device__ __forceinline__ void gradient(const float* a, bool radial) {
+    float tg;
+    if (radial) {
+      const float dx = X - a[1], dy = Y - a[2];
+      tg = sat(ieee_sqrt((dx * dx) + (dy * dy)) * a[3]);
+    } else {
+      tg = sat((a[1] * X) + (a[2] * Y) + a[3]);
+    }
+    const float fr = a[4] + (a[8] - a[4]) * tg;
+    const float fg = a[5] + (a[9] - a[5]) * tg;
+    const float fb = a[6] + (a[10] - a[6]) * tg;
+    const float fa = a[7] + (a[11] - a[7]) * tg;
+    const float x = area + a[0];
+    const float alpha = stack_cov(tmin(fabsf(x), 1.f));
+    blend(fr, fg, fb, fa * alpha);
+    area = 0.f;
+  }
+  __device__ __forceinline__ void wind(const float* a) { area = area + a[0]; }
+};
+
 // Deterministic linear -> sRGB u8 code (scene/color.py::linear_to_srgb_det).
 __device__ __forceinline__ uint32_t srgb_encode(float ch) {
   const float PL[9] = {

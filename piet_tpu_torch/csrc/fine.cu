@@ -12,8 +12,10 @@
 // solid's bytes, or white), then the polynomial sRGB encode packs RGBA8.
 //
 // Design: one block per (tile, band of 1024 / tile_w rows), one thread per
-// pixel, all per-pixel state in registers (r, g, b, squared df, area,
-// clip-coverage stack, saved-rgb layer stack).  The block stages its
+// pixel, all per-pixel state in registers (cmd_math.cuh's PixelState: r,
+// g, b, squared df, area, clip-coverage stack, saved-rgb layer stack;
+// the same evaluators as the dense kernel, fine_dense.cu).  The block
+// stages its
 // tile's entries through shared memory in chunks of 256 x 64 B, loaded
 // cooperatively and coalesced, so every entry word is read from device
 // memory once per block instead of once per thread.
@@ -60,16 +62,7 @@ fine_entries_kernel(const int* __restrict__ first,
   const float X = (float)(tx * tile_w) + (float)lx;
   const float Y = (float)((row0 + ty_local) * tile_h) + (float)row;
 
-  float r = 1.f, g = 1.f, b = 1.f, df2 = DF2_INIT, area = 0.f;
-  float cov[MAX_GROUP_DEPTH + 1];
-  float svr[MAX_GROUP_DEPTH], svg[MAX_GROUP_DEPTH], svb[MAX_GROUP_DEPTH];
-  cov[0] = 1.f;
-#pragma unroll
-  for (int d = 0; d < MAX_GROUP_DEPTH; ++d) {
-    cov[d + 1] = 1.f;
-    svr[d] = svg[d] = svb[d] = 1.f;
-  }
-  int dclip = 0, dlayer = 0;
+  PixelState<true> s(X, Y, 1.f);
 
   const int nthreads = blockDim.x * blockDim.y;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
@@ -85,121 +78,29 @@ fine_entries_kernel(const int* __restrict__ first,
       const float* a1 = ent + W_S1_ARG;   // slot-1 operand words 0..4
       const int tag0 = (int)ent[W_S0_TAG];
       if (tag0 == CMD_LINE) {
-        df2 = tmin(df2, line_field_sq(a0, X, Y));
+        s.line(a0);
       } else if (tag0 == CMD_FILL_EDGE) {
-        area = area + edge_delta(a0, Y);
+        s.fill_edge(a0);
       }
-      if (ent[W_S1_TAG] == (float)CMD_FILL) {
-        float d;
-        if (fill_delta(a1, X, Y, &d)) area = area + d;
-      }
+      if (ent[W_S1_TAG] == (float)CMD_FILL) s.fill(a1);
       switch (tag0) {
-        case CMD_CIRCLE: {
-          const float cx = a0[0] + 0.5f * (a0[2] - a0[0]);
-          const float cy = a0[1] + 0.5f * (a0[3] - a0[1]);
-          const float dx = X - cx, dy = Y - cy;
-          const float rad = ieee_sqrt((dx * dx) + (dy * dy));
-          const float circle_r = tmin(cx - a0[0], cy - a0[1]);
-          float alpha = sat(circle_r - rad);
-          alpha = alpha * clip_cov(a0, X, Y);
-          alpha = alpha * cov[dclip];
-          const float keep = 1.f - alpha;
-          r = r * keep; g = g * keep; b = b * keep;
-          break;
-        }
-        case CMD_STROKE: {
-          const float df = ieee_sqrt(df2);
-          float alpha = sat(a0[0] + 0.5f - df);
-          alpha = alpha * clip_cov(a0, X, Y);
-          alpha = alpha * cov[dclip];
-          const float w = a0[4] * alpha;
-          r = r + (a0[1] - r) * w;
-          g = g + (a0[2] - g) * w;
-          b = b + (a0[3] - b) * w;
-          df2 = DF2_INIT;
-          break;
-        }
-        case CMD_DRAW_FILL: {
-          const float x = area + a0[0];
-          float alpha = clip_alpha(x, a0[5]);
-          alpha = alpha * clip_cov(a0, X, Y);
-          alpha = alpha * cov[dclip];
-          const float w = a0[4] * alpha;
-          r = r + (a0[1] - r) * w;
-          g = g + (a0[2] - g) * w;
-          b = b + (a0[3] - b) * w;
-          area = 0.f;
-          break;
-        }
-        case CMD_SOLID: {
-          float alpha = 1.f * clip_cov(a0, X, Y);
-          alpha = alpha * cov[dclip];
-          const float w = a0[3] * alpha;
-          r = r + (a0[0] - r) * w;
-          g = g + (a0[1] - g) * w;
-          b = b + (a0[2] - b) * w;
-          break;
-        }
-        case CMD_BEGIN_CLIP: {
-          const float x = area + a0[0];
-          const float ca = clip_alpha(x, a0[1]);
-          const int nd = min(dclip + 1, MAX_GROUP_DEPTH);
-          cov[nd] = cov[dclip] * ca;
-          dclip = nd;
-          area = 0.f;
-          break;
-        }
-        case CMD_END_CLIP:
-          dclip = max(dclip - 1, 0);
-          break;
-        case CMD_BEGIN_LAYER: {
-          const int ld = min(dlayer, MAX_GROUP_DEPTH - 1);
-          svr[ld] = r; svg[ld] = g; svb[ld] = b;
-          dlayer = ld + 1;
-          break;
-        }
-        case CMD_END_LAYER: {
-          const float alpha = a0[0];
-          const int ld = max(dlayer - 1, 0);
-          r = svr[ld] + (r - svr[ld]) * alpha;
-          g = svg[ld] + (g - svg[ld]) * alpha;
-          b = svb[ld] + (b - svb[ld]) * alpha;
-          dlayer = ld;
-          break;
-        }
-        case CMD_DRAW_LIN_GRAD:
-        case CMD_DRAW_RAD_GRAD: {
-          float tg;
-          if (tag0 == CMD_DRAW_RAD_GRAD) {
-            const float dx = X - a0[1], dy = Y - a0[2];
-            tg = sat(ieee_sqrt((dx * dx) + (dy * dy)) * a0[3]);
-          } else {
-            tg = sat((a0[1] * X) + (a0[2] * Y) + a0[3]);
-          }
-          const float fr = a0[4] + (a0[8] - a0[4]) * tg;
-          const float fg = a0[5] + (a0[9] - a0[5]) * tg;
-          const float fb = a0[6] + (a0[10] - a0[6]) * tg;
-          const float fa = a0[7] + (a0[11] - a0[7]) * tg;
-          const float x = area + a0[0];
-          float alpha = tmin(fabsf(x), 1.f);
-          alpha = alpha * cov[dclip];
-          const float w = fa * alpha;
-          r = r + (fr - r) * w;
-          g = g + (fg - g) * w;
-          b = b + (fb - b) * w;
-          area = 0.f;
-          break;
-        }
-        case CMD_WIND:
-          area = area + a0[0];
-          break;
-        default:
-          break;
+        case CMD_CIRCLE: s.circle(a0); break;
+        case CMD_STROKE: s.stroke(a0); break;
+        case CMD_DRAW_FILL: s.draw_fill(a0); break;
+        case CMD_SOLID: s.solid(a0); break;
+        case CMD_BEGIN_CLIP: s.begin_clip(a0); break;
+        case CMD_END_CLIP: s.end_clip(); break;
+        case CMD_BEGIN_LAYER: s.begin_layer(); break;
+        case CMD_END_LAYER: s.end_layer(a0); break;
+        case CMD_DRAW_LIN_GRAD: s.gradient(a0, false); break;
+        case CMD_DRAW_RAD_GRAD: s.gradient(a0, true); break;
+        case CMD_WIND: s.wind(a0); break;
+        default: break;
       }
     }
     __syncthreads();
   }
-  if (px_live) out[o] = pack_rgba8(r, g, b);
+  if (px_live) out[o] = pack_rgba8(s.r, s.g, s.b);
 }
 
 }  // namespace

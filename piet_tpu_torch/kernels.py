@@ -41,7 +41,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: Launches per kernel wrapper (one per wrapper call that launched its
 #: kernel).  Plain-version calls never count.
 LAUNCHES = {"candfuse": 0, "hitfuse": 0, "sort": 0, "fine": 0, "expand": 0,
-            "keyed": 0, "gatherm": 0}
+            "keyed": 0, "gatherm": 0, "fine_dense": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,6 +54,7 @@ _SIGNATURES = {
     "piet_expand": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "piet_keyed": [_P, _P, _P, _I, _I, _I, _P],
     "piet_gatherm": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "piet_fine_dense": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _LIB = None

@@ -1,14 +1,16 @@
-"""Coarse binning: staged scene -> entry-stream PTCL, in PyTorch.
+"""Coarse binning: staged scene -> PTCL (entry stream or dense), in PyTorch.
 
-Port of ``piet_tpu/ops/coarse.py::coarse_rasterize(output="entries")``:
-the segment stage -- host-staged (``seg_pre``, renderer/segstage.py) or
-derived on the device from the scene's points (``seg_pre=None``, the
-device-animation path: :func:`derive_seg_stage`) -- then the fused-record
-route: kernel A (candidate expansion), kernel B (hit records), keyed sums,
-the backdrop prefix, the candidate tail commands, one stable sort (kernel
-C), the sorted gather, the ``W_RUN`` run words, per-tile ranges and the
-bail.  The output is word for word the JAX pass's
-(tests/test_torch_coarse.py).
+Port of ``piet_tpu/ops/coarse.py::coarse_rasterize``: the segment stage --
+host-staged (``seg_pre``, renderer/segstage.py) or derived on the device
+from the scene's points (``seg_pre=None``, the device-animation path:
+:func:`derive_seg_stage`) -- then the fused-record route: kernel A
+(candidate expansion), kernel B (hit records), keyed sums, the backdrop
+prefix, the candidate tail commands, one stable sort (kernel C) and the
+sorted gather.  ``output="entries"`` then adds the ``W_RUN`` run words,
+per-tile ranges and the bail; ``output="dense"`` scatters the records
+into (T, CAP) command lists (:func:`_dense_ptcl`).  Both outputs are word
+for word the JAX pass's (tests/test_torch_coarse.py,
+tests/test_torch_dense.py).
 
 The fused route is taken for every scene: the JAX package gates it on by
 a record count measured on the TPU, but the fused and staged routes are
@@ -17,7 +19,7 @@ JAX pass's optional engines: the port always takes ``expand_rows``
 (ops/expand.py), ``keyed_sum`` (ops/keyed.py) and ``gather_monotone``
 (ops/gatherm.py), in both branches.  What the slice does not cover raises
 ``NotImplementedError`` naming its ROADMAP.md item: the unpacked two-key
-sort, the dense output and entry pairing.
+sort and entry pairing.
 
 Bit patterns: candidate rows, segment rows, the bail colour and the entry
 rows travel as int32.  Colours are NaN patterns as f32 and several words
@@ -33,8 +35,10 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..layout.entry_stream import (ENTRY_WORDS, META_CLEAR_BIT,
-                                   META_NCMDS_MASK, META_OPAQUE_BIT, RUN_CAP,
-                                   W_BAIL, W_META, W_RUN, W_S0_TAG, W_S1_TAG)
+                                   META_NCMDS_MASK, META_OPAQUE_BIT,
+                                   N_S0_ARGS, N_S1_ARGS, RUN_CAP, W_BAIL,
+                                   W_META, W_RUN, W_S0_ARG, W_S0_TAG,
+                                   W_S1_ARG, W_S1_TAG)
 from ..raster.ptcl import (CMD_BEGIN_CLIP, CMD_BEGIN_LAYER, CMD_CIRCLE,
                            CMD_DRAW_FILL, CMD_DRAW_LIN_GRAD,
                            CMD_DRAW_RAD_GRAD, CMD_END_CLIP, CMD_END_LAYER,
@@ -84,6 +88,17 @@ class DeviceScene(NamedTuple):
     grads: torch.Tensor       # (NI, 8) f32 gradient payload
     n_items: torch.Tensor     # () int32
     seg_pre: Optional[SegPre] = None
+
+
+class CoarseOutput(NamedTuple):
+    """Dense PTCL: each tile's command list, capacity-padded.  Row ``t`` of
+    ``args`` holds ``CAP`` commands of ``ARG_WORDS`` = 12 operand words."""
+    tags: torch.Tensor        # (T, CAP) int32
+    args: torch.Tensor        # (T, CAP * 12) f32
+    counts: torch.Tensor      # (T,) int32 live commands (capped at CAP)
+    solid: torch.Tensor       # (T,) int32 bits of the bail colour, 0 = none
+    overflow: torch.Tensor    # (T,) int32 commands dropped past CAP
+    diag: dict
 
 
 class CoarseEntries(NamedTuple):
@@ -330,18 +345,26 @@ def _not_covered(what: str, item: str):
 def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
                      tile_w: int, tile_h: int, max_segments: int,
                      max_hits: int, max_candidates: int, row0: int = 0,
-                     output: str = "entries", pair="off",
-                     taps: Optional[dict] = None) -> CoarseEntries:
-    """Bin ``scene`` into the entry stream of a ``tiles_y``-row slab
-    starting at tile row ``row0``.
+                     output: str = "entries",
+                     cmd_capacity: Optional[int] = None, pair="off",
+                     taps: Optional[dict] = None):
+    """Bin ``scene`` into a ``tiles_y``-row slab starting at tile row
+    ``row0``.
+
+    ``output="entries"`` returns the entry stream (:class:`CoarseEntries`);
+    ``output="dense"`` scatters the same sorted records into per-tile
+    command lists of ``cmd_capacity`` slots (:class:`CoarseOutput`), as
+    the JAX pass's dense output does.
 
     ``taps``: optional dict that receives each kernel's inputs (keys
     "candfuse", "hitfuse", "sort"; "keyed" and "gatherm" as lists of
     calls; "expand" on the device-derived segment stage) -- for tests and
     chip_smoke.py.
     """
-    if output != "entries":
-        _not_covered("the dense coarse output", "dense/portable path")
+    if output not in ("entries", "dense"):
+        raise ValueError(f"unknown coarse output {output!r}")
+    if output == "dense" and cmd_capacity is None:
+        raise ValueError("output='dense' needs cmd_capacity")
     if pair not in (False, "off"):
         _not_covered("entry pairing", "pairing")
     dev = scene.tags.device
@@ -553,6 +576,18 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
     e_ncmds = e_meta & META_NCMDS_MASK
     e_is_opaque = (e_meta & META_OPAQUE_BIT) != 0
     e_is_clear = (e_meta & META_CLEAR_BIT) != 0
+    diag = {
+        "n_segments": n_segs[0], "n_hits": n_hits[0],
+        "n_candidates": n_cand[0], "n_deltas": n_deltas,
+        "seg_overflow": torch.clamp(n_segs[0] - max_segments, min=0),
+        "hit_overflow": torch.clamp(n_hits[0] - max_hits, min=0),
+        "cand_overflow": torch.clamp(n_cand[0] - max_candidates, min=0),
+    }
+    if output == "dense":
+        return _dense_ptcl(stream16, sorted_idx, live, e_tile, e_ncmds,
+                           e_is_opaque, e_is_clear, c_color_bits, diag,
+                           n_tiles=n_tiles, max_hits=max_hits,
+                           cmd_capacity=cmd_capacity)
 
     # ---- run words: remaining length of each same-class streak ---------
     sf = stream16.view(F32)
@@ -609,14 +644,108 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
     first_live = W(last_opaque >= 0, best_entry, first_c)
     n_live = W(bail | ~has_entries, 0, last_raw - first_live + 1)
     first_live = W(n_live > 0, first_live, 0)
-    diag = {
-        "n_segments": n_segs[0], "n_hits": n_hits[0],
-        "n_candidates": n_cand[0], "n_deltas": n_deltas,
-        "live_entries": n_live.sum(),
-        "seg_overflow": torch.clamp(n_segs[0] - max_segments, min=0),
-        "hit_overflow": torch.clamp(n_hits[0] - max_hits, min=0),
-        "cand_overflow": torch.clamp(n_cand[0] - max_candidates, min=0),
-    }
+    diag["live_entries"] = n_live.sum()
     return CoarseEntries(stream=stream16.view(F32), first=first_live.to(I32),
                          n_entries=n_live.to(I32), counts=count_post.to(I32),
                          solid=solid.to(I32), diag=diag)
+
+
+def _dense_ptcl(rows, sorted_idx, live, e_tile, e_ncmds, e_is_opaque,
+                e_is_clear, c_color_bits, diag, *, n_tiles: int,
+                max_hits: int, cmd_capacity: int) -> CoarseOutput:
+    """The sorted records -> dense (T, CAP) command lists: a port of the
+    dense tail of ``piet_tpu/ops/coarse.py`` (per-tile f32 index maxima,
+    command positions, the bail, and the two slot scatters).
+
+    ``rows`` are the sorted (E, 16) int32 records with dead rows zeroed.
+    A hit record's slot 0 is its FillEdge or Line (operand words 0-6; the
+    rest are zero), slot 1 its Fill (words 0-4); a candidate record's
+    slot 0 is its tail command with all 12 operand words (word 7 rides in
+    the record's slot-1 tag word, the clip rect or second stop in words
+    9-12).  Rows are assembled as int32 bit patterns: tags as f32 bits
+    would be denormals, and operand words carry NaN payloads."""
+    dev = rows.device
+    E = rows.shape[0]
+    cap = cmd_capacity
+    rows_f = rows.view(F32)
+    # Per-tile first/last/last-opaque/last-clearing entry as index maxima
+    # of per-entry values, in f32 as the JAX pass computes them (entry
+    # indices < 2^24 are exact); empty tiles reduce to -inf.
+    seg_tile = torch.clamp(e_tile, max=n_tiles).long()
+    eidx_f = torch.arange(E, dtype=F32, device=dev)
+    packed = torch.stack(
+        [-eidx_f - 1.0, eidx_f,
+         e_is_opaque.to(F32) * (eidx_f + 1.0) - 1.0,
+         e_is_clear.to(F32) * (eidx_f + 2.0) - 2.0], dim=1)
+    red_f = torch.full((n_tiles + 1, 4), -_INF, dtype=F32, device=dev)
+    red_f.scatter_reduce_(0, seg_tile[:, None].expand(E, 4), packed, "amax",
+                          include_self=False)
+    red = torch.clamp(red_f[:n_tiles], min=float(-(E + 2))).to(I32)
+    first_raw = -red[:, 0] - 1
+    last_raw = red[:, 1]
+    has_entries = last_raw >= 0
+    first_c = torch.clamp(first_raw, 0, E - 1).long()
+    last_c = torch.clamp(last_raw, 0, E - 1).long()
+    cpos_excl, _ = _exclusive_cumsum(e_ncmds)
+    tile_cmd_base = torch.where(has_entries, cpos_excl[first_c], 0)
+    tile_cmd_total = torch.where(
+        has_entries, cpos_excl[last_c] + e_ncmds[last_c] - tile_cmd_base, 0)
+    opq_e = torch.clamp(red[:, 2], min=-1)
+    clr_e = torch.clamp(red[:, 3], min=-2)
+    best_entry = torch.clamp(opq_e, min=0).long()
+    e_tile_c = torch.clamp(e_tile, max=n_tiles - 1).long()
+    e_pos = cpos_excl - tile_cmd_base[e_tile_c]
+
+    # ---- the bail and each tile's kept command range -------------------
+    bail = clr_e < opq_e
+    last_opaque = torch.where(opq_e >= 0, e_pos[best_entry], -1)
+    cidx = torch.clamp(sorted_idx - max_hits, min=0).long()
+    best_color = c_color_bits[cidx[best_entry]]
+    solid = torch.where(bail, torch.where(last_opaque >= 0, best_color, -1),
+                        0)
+    start = torch.where(bail, 0, torch.where(last_opaque >= 0, last_opaque,
+                                             0))
+    count_post = torch.where(bail, 0, tile_cmd_total - start)
+    overflow = torch.clamp(count_post - cap, min=0)
+    counts = torch.clamp(count_post, max=cap)
+
+    # ---- the two slot scatters into (T * CAP + 1, 13) rows -------------
+    src_is_hit = sorted_idx < max_hits
+    tag0 = rows_f[:, W_S0_TAG].to(I32)
+    s0_valid = tag0 != 0
+    s1_valid = src_is_hit & (rows_f[:, W_S1_TAG] == float(CMD_FILL))
+    zeros = torch.zeros((E, 12 - N_S0_ARGS), dtype=I32, device=dev)
+    hit_args = torch.cat([rows[:, W_S0_ARG:W_S0_ARG + N_S0_ARGS], zeros], 1)
+    s0_args = torch.where(src_is_hit[:, None], hit_args,
+                          rows[:, W_S0_ARG:W_S0_ARG + 12])
+    s1_args = torch.cat([rows[:, W_S1_ARG:W_S1_ARG + N_S1_ARGS],
+                         torch.zeros((E, 12 - N_S1_ARGS), dtype=I32,
+                                     device=dev)], 1)
+    rel = e_pos - start[e_tile_c]
+    tile_ok = live & ~bail[e_tile_c]
+    tile_n = counts[e_tile_c]
+    dump = n_tiles * cap
+    out_rows = torch.zeros((dump + 1, 13), dtype=I32, device=dev)
+
+    def scatter_slot(slot_off, valid, tag, args):
+        pos = rel + slot_off
+        ok = valid & tile_ok & (pos >= 0) & (pos < tile_n)
+        # Every dead slot writes the dump row, which is dropped; live
+        # positions are unique, so which duplicate wins there is moot.
+        flat = torch.where(ok, e_tile_c * cap + pos, dump)
+        row = torch.cat([torch.where(ok, tag, 0)[:, None],
+                         torch.where(ok[:, None], args, 0)], 1)
+        out_rows[flat] = row
+
+    # A fill hit without a slot-0 command places its Fill at rel + 0.
+    scatter_slot(0, s0_valid | s1_valid,
+                 torch.where(s0_valid, tag0, CMD_FILL),
+                 torch.where(s0_valid[:, None], s0_args, s1_args))
+    scatter_slot(1, s0_valid & s1_valid, torch.full_like(tag0, CMD_FILL),
+                 s1_args)
+    tags = out_rows[:dump, 0].reshape(n_tiles, cap).contiguous()
+    args = out_rows[:dump, 1:].reshape(n_tiles, cap * 12).contiguous()
+    diag["live_cmds"] = counts.sum()
+    return CoarseOutput(tags=tags, args=args.view(F32), counts=counts.to(I32),
+                        solid=solid.to(I32), overflow=overflow.to(I32),
+                        diag=diag)

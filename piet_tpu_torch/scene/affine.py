@@ -240,7 +240,8 @@ def host_transform_scene(scene, m):
     return dataclasses.replace(scene, points=points, bboxes=bboxes)
 
 
-def make_affine_render_fn(config, scene, mats_fn: Callable, device="cuda"):
+def make_affine_render_fn(config, scene, mats_fn: Callable, device="cuda",
+                          fine_impl: str = "entries"):
     """``t -> (image, stats)`` rendering ``scene`` under ``mats_fn(t)``
     ((NI, 6) or (6,) affines from a 0-d f32 tensor on the device):
     transform, coarse (segments derived on the device), fine and present.
@@ -248,10 +249,11 @@ def make_affine_render_fn(config, scene, mats_fn: Callable, device="cuda"):
     The scene is staged once; a frame costs the transform and the render,
     with no host encode.  ``render_t.scene_at(t)`` returns the frame's
     DeviceScene (for the oracle contract; see the module doc).
+    ``fine_impl`` picks the frame route (renderer/renderer.py).
     """
     from ..renderer.renderer import Renderer, frame_scalar, prepare_scene
 
-    renderer = Renderer(config, device)
+    renderer = Renderer(config, device, fine_impl)
     dev = renderer.device
     base = prepare_scene(scene, config, dev, seg_pre=False)
     ab = build_base(scene, config, dev)

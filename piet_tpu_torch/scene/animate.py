@@ -143,14 +143,16 @@ def animate_device_scene(base, p: AnimatedParams, t):
 
 
 def make_animated_render_fn(config, *, size: int = 1024, n: int = 200,
-                            seed: int = 5, device="cuda"):
+                            seed: int = 5, device="cuda",
+                            fine_impl: str = "entries"):
     """``t -> (image, stats)`` with the whole frame -- geometry, coarse
     (segments derived on the device), fine, present -- on ``device``.
     Returns (render_t, template scene) so callers can check capacities;
-    ``render_t.scene_at(t)`` returns the frame's DeviceScene."""
+    ``render_t.scene_at(t)`` returns the frame's DeviceScene; ``fine_impl``
+    picks the frame route (renderer/renderer.py)."""
     from ..renderer.renderer import Renderer, prepare_scene
 
-    renderer = Renderer(config, device)
+    renderer = Renderer(config, device, fine_impl)
     dev = renderer.device
     tmpl = template_scene(size=size, n=n, seed=seed)
     base = prepare_scene(tmpl, config, dev, seg_pre=False)

@@ -220,16 +220,18 @@ def test_stream_layout_round_trip():
 
 @pytest.mark.parametrize("what", ["dense", "pairing", "seg_pre"])
 def test_uncovered_paths_raise(what):
-    """"seg_pre": a scene without the host segment stage is covered now;
-    on a grid whose packed sort key passes 2^24 it still reaches the
-    unpacked two-key sort, which is not."""
+    """"seg_pre" and "dense": a scene without the host segment stage and
+    the dense output are covered now; on a grid whose packed sort key
+    passes 2^24 they still reach the unpacked two-key sort, which is
+    not."""
     scene = fixtures.get_scene("path_test")
     cfg = fit_capacities(scene, RenderConfig(width=256, height=256))
     dev = device_scene_from_numpy(
         jax.tree.map(np.asarray, prepare_scene(scene, cfg)), "cpu")
     kw = _kw(cfg)
     if what == "dense":
-        kw["output"] = "dense"
+        kw.update(output="dense", cmd_capacity=cfg.cmd_capacity,
+                  tiles_x=4096, tiles_y=4096)
     elif what == "pairing":
         kw["pair"] = "compact"
     else:

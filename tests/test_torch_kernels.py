@@ -20,8 +20,8 @@ torch.set_num_threads(1)
 
 from piet_tpu_torch import kernels
 from piet_tpu_torch.config import RenderConfig
-from piet_tpu_torch.ops import (candfuse, coarse, expand, fine, gatherm,
-                                hitfuse, keyed, sort)
+from piet_tpu_torch.ops import (candfuse, coarse, expand, fine, fine_xla,
+                                gatherm, hitfuse, keyed, sort)
 from piet_tpu_torch.raster.cpu_fine import cpu_render_scene
 from piet_tpu_torch.renderer.capacity import fit_capacities
 from piet_tpu_torch.renderer.renderer import (Renderer, _solid_to_present_u32,
@@ -231,7 +231,9 @@ def test_cuda_animated_frame_equals_oracle(t):
                                                   seed=5)
     kernels.reset_launches()
     img, _ = render_t(t)
-    assert all(v > 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
+    launches = dict(kernels.LAUNCHES)
+    assert launches.pop("fine_dense") == 0     # the entries route
+    assert all(v > 0 for v in launches.values()), kernels.LAUNCHES
     got = img.cpu().numpy().view(np.uint8).reshape(256, 256, 4)
     frame = fetch_scene(render_t.scene_at(t), tmpl.n_items, tmpl.n_points)
     np.testing.assert_array_equal(got, cpu_render_scene(frame, cfg))
@@ -306,9 +308,88 @@ def test_cuda_render_bitwise_equals_oracle(name, make, size, th):
                            tile_height=th, tile_width=128)
     kernels.reset_launches()
     got = r.render(scene)
-    # A static scene stages its segments on the host: no expansion.
+    # A static scene stages its segments on the host: no expansion; the
+    # entries route runs no dense interpreter.
     launches = dict(kernels.LAUNCHES)
     assert launches.pop("expand") == 0
+    assert launches.pop("fine_dense") == 0
     assert all(v > 0 for v in launches.values()), kernels.LAUNCHES
+    np.testing.assert_array_equal(got, cpu_render_scene(scene, r.config),
+                                  err_msg=name)
+
+
+DENSE_SCENES = [
+    ("tiger_1x", lambda: make_tiger(scale=1.0), 512, 32),
+    ("clip_star", lambda: fixtures.make_clip_star(256), 256, 16),
+    ("gradient_demo", lambda: fixtures.make_gradient_demo(256), 256, 16),
+    ("holes_demo", lambda: fixtures.make_holes_demo(256), 256, 16),
+]
+
+
+def _dense_ptcl(make, size, th, device):
+    scene = make()
+    cfg = fit_capacities(scene, RenderConfig(width=size, height=size,
+                                             tile_height=th, tile_width=128))
+    out = coarse.coarse_rasterize(
+        prepare_scene(scene, cfg, device), output="dense",
+        cmd_capacity=cfg.cmd_capacity, tiles_x=cfg.tiles_x,
+        tiles_y=cfg.tiles_y, tile_w=cfg.tile_width, tile_h=cfg.tile_height,
+        max_segments=cfg.max_segments, max_hits=cfg.max_hits,
+        max_candidates=cfg.max_candidates)
+    args = (out.counts.reshape(cfg.tiles_y, cfg.tiles_x), out.tags, out.args)
+    kw = dict(tile_h=cfg.tile_height, tile_w=cfg.tile_width,
+              cmd_capacity=cfg.cmd_capacity)
+    return scene, cfg, args, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,make,size,th", DENSE_SCENES,
+                         ids=[s[0] for s in DENSE_SCENES])
+def test_cuda_fine_dense_equals_plain(name, make, size, th):
+    """Both instantiations of the dense kernel against their plain
+    versions on the card, on the dense coarse pass's own PTCL."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _, _, args, kw = _dense_ptcl(make, size, th, "cuda")
+    kernels.reset_launches()
+    assert torch.equal(fine.fine_rasterize(*args, **kw),
+                       fine.fine_rasterize_plain(*args, **kw))
+    assert torch.equal(fine_xla.fine_rasterize_xla(*args, **kw),
+                       fine_xla.fine_rasterize_xla_plain(*args, **kw))
+    assert kernels.LAUNCHES["fine_dense"] == 2
+
+
+@pytest.mark.cuda
+def test_cuda_fine_dense_rejects_bad_inputs():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _, _, (counts, tags, args), kw = _dense_ptcl(
+        DENSE_SCENES[1][1], 256, 16, "cuda")
+    with pytest.raises(TypeError):
+        fine.fine_rasterize(counts, tags.float(), args, **kw)
+    with pytest.raises(TypeError):
+        fine_xla.fine_rasterize_xla(counts.long(), tags, args, **kw)
+    t2 = torch.zeros((tags.shape[1], tags.shape[0]), dtype=torch.int32,
+                     device="cuda").t()
+    with pytest.raises(ValueError, match="contiguous"):
+        fine.fine_rasterize(counts, t2, args, **kw)
+    with pytest.raises(ValueError, match="multiple"):
+        fine.fine_rasterize(counts, tags, args, **dict(kw, cmd_capacity=100))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,make,size,th", DENSE_SCENES,
+                         ids=[s[0] for s in DENSE_SCENES])
+def test_cuda_dense_render_equals_oracle(name, make, size, th):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    scene = make()
+    r = Renderer.for_scene(scene, size, size, device="cuda",
+                           fine_impl="dense", tile_height=th, tile_width=128)
+    kernels.reset_launches()
+    got = r.render(scene)
+    assert kernels.LAUNCHES["fine_dense"] == 1
+    assert kernels.LAUNCHES["fine"] == 0
+    assert r.last_stats["overflow_cmds"] == 0
     np.testing.assert_array_equal(got, cpu_render_scene(scene, r.config),
                                   err_msg=name)
