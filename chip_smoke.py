@@ -11,12 +11,17 @@ and exits non-zero:
   2. build the kernels from csrc/ with nvcc, one process per source
      (timed);
   3. every kernel against its plain PyTorch version on the same inputs,
-     bitwise (tolerance 0): candfuse, hitfuse, sort and fine on the
-     static 1664^2 tiger's own inputs; expand, keyed and gatherm on the
-     affine-animated tiger's (segments derived on the device); fine_dense
-     on the static tiger's dense PTCL in both instantiations (fine_rasterize
-     and fine_rasterize_xla) and, in the group one, on the clip, gradient
-     and multi-subpath fixtures at 1024^2;
+     bitwise (tolerance 0): candfuse and hitfuse on the static 1664^2
+     tiger's own inputs; sort on the tiger's keys, on the two keys of the
+     unpacked configuration (below), on the tiger's keys with a val that
+     is not increasing, and on 2^20 pairs (the device-memory route); fine
+     (kernel D) on the tiger's entries (no group command: the stackless
+     path), on the clip, gradient and multi-subpath fixtures' at 1024^2
+     (the stack path) and on the tiger's at 16x16 tiles; expand, keyed and
+     gatherm on the affine-animated tiger's (segments derived on the
+     device); fine_dense on the static tiger's dense PTCL in both
+     instantiations (fine_rasterize and fine_rasterize_xla) and, in the
+     group one, on the three fixtures;
   4. the static path: Renderer.for_scene(tiger, 1664, 1664).render() and
      the same at 3840x2160, with the launch counters reset just before
      and read just after each; the images must equal the numpy oracle
@@ -27,6 +32,10 @@ and exits non-zero:
      not run and no PTCL overflow; the three group fixtures at 1024^2; one
      affine-tiger frame; and render_sequence, render_packed_u32 and
      render_updated on animated-fixture frames, each equal to render();
+  4c. the unpacked configuration -- the cardioid at 1024^2 in 16x16
+     tiles with room for 2,048 items, whose packed sort key would reach
+     2^24 -- on both routes, bitwise against the oracle (the two-key
+     sort);
   5. the device-animation paths, 2 frames each: the tiger under the
      affine spin/zoom at 1664^2 (make_affine_render_fn) and the animated
      fixture at 1024^2 (make_animated_render_fn).  Each frame must equal
@@ -37,7 +46,9 @@ and exits non-zero:
      static tiger), device ms with the launch overhead hidden, a
      torch.profiler trace (device-busy share and top device ops), and each
      kernel beside its plain version, its bound and, where one PyTorch call
-     computes the same function, that call.
+     computes the same function, that call; then kernel C's device-memory
+     route on 2^20 pairs beside torch.sort, and fine_dense's non-group
+     instantiation.
 
 The line before the last is the kernel table as JSON, each kernel with
 the path whose run gave its launch count; the last line is {"ok": true,
@@ -68,9 +79,12 @@ def card_line() -> str:
 SPIN_CYCLES = 50_000_000
 
 #: Published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s and
-#: float32 operations/s outside the tensor cores.
+#: float32 operations/s outside the tensor cores.  The data sheet's 67
+#: TFLOP/s counts a fused multiply-add as two operations; the kernels are
+#: built with -fmad=false, so every multiply and add runs on its own and
+#: the attainable rate is half that.
 HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
+F32_OPS_PER_S = 67e12 / 2
 #: Float32 operations per pixel per command in the fine interpreter -- a
 #: lower bound (a fill's trapezoid area or a line's distance field takes
 #: more), so the fine bound is a least time.
@@ -279,6 +293,32 @@ def dense_inputs(staged, cfg):
                  cmd_capacity=cfg.cmd_capacity))
 
 
+def unpacked_config(scene):
+    """The scene's fitted capacities at 1024^2 in 16x16 tiles with room
+    for 2,048 items: 4,096 tiles x 2 * 2,049 >= 2^24, so the coarse pass
+    sorts on the unpacked keys (tile, item * 2 + class)."""
+    import dataclasses
+
+    from piet_tpu_torch.host import RenderConfig, fit_capacities
+    cfg = fit_capacities(scene, RenderConfig(width=1024, height=1024,
+                                             tile_height=16, tile_width=16))
+    cfg = dataclasses.replace(cfg, max_items=2048)
+    assert cfg.n_tiles * 2 * (cfg.max_items + 1) >= 2 ** 24
+    return cfg
+
+
+def entries_inputs(staged, cfg):
+    """(first, n_entries, present, stream) and kernel D's keywords: the
+    entry stream of a staged scene, as the entries route hands it over."""
+    from piet_tpu_torch.ops import coarse
+    from piet_tpu_torch.renderer.renderer import _solid_to_present_u32
+    ce = coarse.coarse_rasterize(staged, **coarse_kw(cfg))
+    return ((ce.first, ce.n_entries, _solid_to_present_u32(ce.solid),
+             ce.stream),
+            dict(tile_h=cfg.tile_height, tile_w=cfg.tile_width,
+                 tiles_x=cfg.tiles_x))
+
+
 def coarse_kw(cfg) -> dict:
     return dict(tiles_x=cfg.tiles_x, tiles_y=cfg.tiles_y,
                 tile_w=cfg.tile_width, tile_h=cfg.tile_height,
@@ -342,7 +382,6 @@ def main() -> int:
     torch.cuda.synchronize()
     ci_in, akw = taps["candfuse"]
     hit_args, bkw = taps["hitfuse"]
-    sort_key, sort_val = taps["sort"]
     fine_args = (entries.first, entries.n_entries,
                  _solid_to_present_u32(entries.solid), entries.stream)
     fkw = dict(tile_h=cfg.tile_height, tile_w=cfg.tile_width,
@@ -366,6 +405,45 @@ def main() -> int:
         dense_in.append(dense_inputs(gr.prepare(group_scenes[name]),
                                      gr.config))
     tiger_dense = dense_in[0]
+    # Kernel D beyond the tiger (whose tiles hold no group command: the
+    # stackless path): the group fixtures' entry streams (the stack path)
+    # and the tiger's at 16x16 tiles.
+    fine_cases = [("tiger 1664x1664", fine_args, fkw)]
+    for name, gr in group_renderers.items():
+        fine_cases.append((f"{name} 1024x1024", *entries_inputs(
+            gr.prepare(group_scenes[name]), gr.config)))
+    r16 = Renderer.for_scene(scene, 1664, 1664, tile_height=16,
+                             tile_width=16, device=dev)
+    fine_cases.append(("tiger 1664x1664, 16x16 tiles",
+                       *entries_inputs(r16.prepare(scene), r16.config)))
+
+    # The unpacked configuration (phase 4c), and kernel C's four cases.
+    cardioid = fixtures.make_cardioid(center=(512.0, 512.0), r=400.0)
+    unp_cfg = unpacked_config(cardioid)
+    utaps = {}
+    coarse.coarse_rasterize(Renderer(unp_cfg, dev).prepare(cardioid),
+                            taps=utaps, **coarse_kw(unp_cfg))
+    sort_keys, sort_val, sort_bounds = taps["sort"]
+    gen = torch.Generator(device=dev).manual_seed(4)
+    big_n = 1 << 20
+    big_key = torch.randint(0, 2 ** 24, (big_n,), generator=gen,
+                            device=dev).to(torch.float32)
+    big_key[torch.rand(big_n, generator=gen, device=dev) < 0.2] = math.inf
+    sort_cases = {
+        "tiger": (sort_keys, sort_val, sort_bounds),
+        "unpacked, two keys": utaps["sort"],
+        "tiger, val reversed": (sort_keys, torch.flip(sort_val, [0]),
+                                sort_bounds),
+        "2^20 pairs": ((big_key,), torch.arange(big_n, dtype=torch.int32,
+                                                device=dev), None)}
+    for name, (k, v, b) in sort_cases.items():
+        plan = sort.sort_plan(v.shape[0], b or (sort.KEY_LIMIT,) * len(k))
+        route = (f"one launch, cluster of {plan.cluster} blocks of "
+                 f"{plan.chunk} pairs" if plan.cluster else
+                 f"device-memory route, {3 * len(plan.passes)} launches")
+        print(f"sort case {name}: {v.shape[0]} pairs, {len(k)} key(s), "
+              f"bounds {b}, {len(plan.passes)} digit passes {plan.passes}; "
+              f"{route}", flush=True)
 
     # The one PyTorch call computing the same function, where there is
     # one (timed beside the kernel; the port never calls it).
@@ -374,7 +452,7 @@ def main() -> int:
     keyed_lib_keys = [torch.where((a[1] >= 0) & (a[1] < a[2]), a[1],
                                   a[2]).long() for a in keyed_calls]
     gather_lib_idx = [[i.long() for i in idxs] for _, idxs in gather_calls]
-    n_ent = sort_key.shape[0]
+    n_ent = sort_val.shape[0]
     fine_cmds = int(entries.counts.sum())
     tile_px = cfg.tile_width * cfg.tile_height
     img_bytes = cfg.tiles_x * cfg.tiles_y * tile_px * 4
@@ -424,20 +502,31 @@ def main() -> int:
                                                            **bkw),),
             library=None,
             bytes=hit_bytes),
+        # Compared on the four cases; timed on the tiger's keys.
         "sort": dict(
             route="cuda", source="piet_tpu_torch/csrc/sort.cu",
             replaces="piet_tpu/ops/sort.py:111",
-            run=lambda: _flat(sort.stable_sort_multi((sort_key,), sort_val)),
-            plain=lambda: _flat(sort.stable_sort_multi_plain((sort_key,),
-                                                             sort_val)),
-            library=lambda: torch.sort(sort_key, stable=True),
+            run=lambda: sum((_flat(sort.stable_sort_multi(*c))
+                             for c in sort_cases.values()), ()),
+            plain=lambda: sum((_flat(sort.stable_sort_multi_plain(*c[:2]))
+                               for c in sort_cases.values()), ()),
+            time=lambda: sort.stable_sort_multi(sort_keys, sort_val,
+                                                sort_bounds),
+            time_plain=lambda: sort.stable_sort_multi_plain(sort_keys,
+                                                            sort_val),
+            library=lambda: torch.sort(sort_keys[0], stable=True),
             bytes=2 * n_ent * 8),
+        # Compared on the four cases; timed on the static tiger.
         "fine": dict(
             route="cuda", source="piet_tpu_torch/csrc/fine.cu",
             replaces="piet_tpu/ops/fine.py:245",
-            run=lambda: (fine.fine_rasterize_entries(*fine_args, **fkw),),
-            plain=lambda: (fine.fine_rasterize_entries_plain(*fine_args,
-                                                             **fkw),),
+            run=lambda: tuple(fine.fine_rasterize_entries(*a, **k)
+                              for _, a, k in fine_cases),
+            plain=lambda: tuple(fine.fine_rasterize_entries_plain(*a, **k)
+                                for _, a, k in fine_cases),
+            time=lambda: (fine.fine_rasterize_entries(*fine_args, **fkw),),
+            time_plain=lambda: (fine.fine_rasterize_entries_plain(
+                *fine_args, **fkw),),
             library=None,
             bytes=fine_bytes,
             ops=fine_cmds * tile_px * FINE_OPS_PER_PIXEL_CMD),
@@ -501,6 +590,7 @@ def main() -> int:
         want = k["plain"]()
         torch.cuda.synchronize()
         n_bad, err = 0, 0.0
+        assert len(got) == len(want), name
         for g, w in zip(got, want):
             nb, e = bitwise(g, w)
             n_bad += nb
@@ -606,6 +696,23 @@ def main() -> int:
           f"{same_seq}; render_packed_u32: {same_packed}; render_updated "
           f"(points moved): {same_updated}", flush=True)
     assert same_seq and same_packed and same_updated
+
+    # ---- 4c. the unpacked configuration: the two-key sort ---------------
+    unp_gold = cpu_render_scene(cardioid, unp_cfg)
+    for impl in ("entries", "dense"):
+        r = Renderer(unp_cfg, dev, fine_impl=impl)
+        kernels.reset_launches()
+        img = r.render(cardioid)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        n_bad = int((img != unp_gold).any(-1).sum())
+        print(f"render unpacked cardioid 1024x1024, 16x16 tiles, {impl} "
+              f"route: {n_bad} pixels differ from the numpy oracle; "
+              f"{unp_cfg.n_tiles} tiles x 2 * ({unp_cfg.max_items} + 1) = "
+              f"{unp_cfg.n_tiles * 2 * (unp_cfg.max_items + 1)} >= 2^24; "
+              f"launches {launches}", flush=True)
+        assert n_bad == 0, f"unpacked {impl} image differs from the oracle"
+        assert launches["sort"] == 1, launches
 
     # ---- 5. the device-animation paths ---------------------------------
     anim_launches = {}
@@ -714,6 +821,15 @@ def main() -> int:
               f"{k['bytes']} B, {k.get('ops', 0)} f32 ops; mean of "
               f"back-to-back calls, all of one frame's calls)", flush=True)
 
+    # The device-memory route's case against torch.sort on the same keys.
+    big_keys, big_val, _ = sort_cases["2^20 pairs"]
+    t_big = time_ms(lambda: sort.stable_sort_multi(big_keys, big_val),
+                    reps=20, warm=2)
+    t_big_lib = time_ms(lambda: torch.sort(big_keys[0], stable=True),
+                        reps=20, warm=2)
+    print(f"timing kernel sort, 2^20 pairs, 25-bit keys [{card}]: "
+          f"{t_big:.4f} ms device (device-memory route), torch.sort "
+          f"{t_big_lib:.4f} ms", flush=True)
     # The dense kernel's other instantiation (fine_rasterize, the TPU
     # kernel's own tag map), on the same PTCL.
     t_ng = time_ms(lambda: fine.fine_rasterize(*tiger_dense[:3],
@@ -745,8 +861,8 @@ def main() -> int:
 
 
 def _flat(sorted_out):
-    (keys,), vals = sorted_out
-    return keys, vals
+    keys, vals = sorted_out
+    return tuple(keys) + (vals,)
 
 
 if __name__ == "__main__":

@@ -37,8 +37,30 @@ __device__ __forceinline__ float tmin(float a, float b) {
 __device__ __forceinline__ float tmax(float a, float b) {
   return (a > b || a != a) ? a : b;
 }
+// min and max that give the canonical NaN when an input is a NaN, in one
+// instruction each (sm_80 and later).  The GPU's float arithmetic makes
+// only that NaN, so for inputs that are arithmetic results -- every
+// caller below -- they agree with tmin/tmax bit for bit, except that a
+// pair of zeros of opposite signs may give the other zero: each caller
+// says why that cannot change its result.  tmin/tmax take a compare, a
+// NaN test and a select on the ALU pipe, which bounds the fine kernels.
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+// tmin(v, 1) of an arithmetic result v (1 is no zero).
+__device__ __forceinline__ float min1(float v) { return min_nan(v, 1.f); }
+// tmin(tmax(v, 0), 1) of an arithmetic result v: tmax(-0, +0) is +0, so
+// the sum with +0 (which leaves every other value as it is) settles the
+// sign of a zero whichever zero max_nan returns.
 __device__ __forceinline__ float sat(float v) {
-  return tmin(tmax(v, 0.f), 1.f);
+  return __fadd_rn(min1(max_nan(v, 0.f)), 0.f);
 }
 // jnp.sign: keeps -0.0 and NaN (torch.sign does not).
 __device__ __forceinline__ float sgn(float x) {
@@ -122,7 +144,7 @@ __device__ __forceinline__ float line_field_sq(const float* a, float X,
 
 __device__ __forceinline__ float fill_F(float u) {
   const float c = sat(u);
-  return tmin(u, 1.f) - (0.5f * (c * c));
+  return min1(u) - (0.5f * (c * c));
 }
 
 // Returns the masked delta (0 where the mask is off) through *delta.
@@ -134,13 +156,17 @@ __device__ __forceinline__ bool fill_delta(const float* a, float X, float Y,
   const float w0 = sat(rsy);
   const float w1 = sat(rey);
   const bool mask = w0 != w1;
-  const float wa = tmin(w0, w1);
-  const float wb = tmax(w0, w1);
+  // sat never gives -0, so no pair of zeros of opposite signs here.
+  const float wa = min_nan(w0, w1);
+  const float wb = max_nan(w0, w1);
   const float rx = sx - X;
   const float ua = rx + (m * (wa - rsy));
   const float ub = rx + (m * (wb - rsy));
-  const float umin = tmin(ua, ub);
-  const float umax = tmax(ua, ub);
+  // Where ua and ub are zeros of opposite signs, umax - umin is a zero
+  // whichever zeros min_nan/max_nan give, so the delta is deg, which
+  // does not read them.
+  const float umin = min_nan(ua, ub);
+  const float umax = max_nan(ua, ub);
   const float d = (fill_F(umax) - fill_F(umin)) * K;
   const float u0 = w0 <= w1 ? ua : ub;
   const float deg = (1.f - sat(u0)) * (w0 - w1);
@@ -154,7 +180,7 @@ __device__ __forceinline__ float edge_delta(const float* a, float Y) {
 
 __device__ __forceinline__ float clip_alpha(float x, float even_odd) {
   const float eo = fabsf(x - 2.f * rintf(0.5f * x));
-  const float nz = tmin(fabsf(x), 1.f);
+  const float nz = min1(fabsf(x));
   return even_odd != 0.f ? eo : nz;
 }
 
@@ -175,7 +201,11 @@ __device__ __forceinline__ float clip_cov(const float* a, float X, float Y) {
 // kStack: the clip-coverage and saved-rgb stacks of the group commands
 // (MAX_GROUP_DEPTH each, in registers and local memory).  With it, every
 // draw's alpha is multiplied by the open clip's coverage, as make_commands
-// does when given ``cov``; without it there is no such multiply.
+// does when given ``cov``; without it there is no such multiply.  A draw
+// may skip the multiply on a stack state (kCov = false) while no group
+// command has run: the coverage is then cov[0] == 1, and alpha * 1 ==
+// alpha on every f32 (a NaN alpha comes out of arithmetic, so it is the
+// canonical NaN either way).
 template <bool kStack>
 struct PixelState {
   float r = 1.f, g = 1.f, b = 1.f, df2 = DF2_INIT, area = 0.f;
@@ -185,10 +215,17 @@ struct PixelState {
   int dclip = 0, dlayer = 0;
   float X, Y;
 
+  PixelState() = default;
   // ``saved``: the initial saved-rgb planes (1 in the entry-stream kernel,
   // 0 in the dense group interpreter, as their JAX counterparts start).
   __device__ __forceinline__ PixelState(float x, float y, float saved)
       : X(x), Y(y) {
+    init_stacks(saved);
+  }
+  // The stacks at their start: full coverage, ``saved`` planes.  (A
+  // state built by the default constructor may set them only when its
+  // first group command comes: nothing reads them before.)
+  __device__ __forceinline__ void init_stacks(float saved) {
 #pragma unroll
     for (int d = 0; d < (kStack ? MAX_GROUP_DEPTH + 1 : 1); ++d) cov[d] = 1.f;
 #pragma unroll
@@ -196,8 +233,9 @@ struct PixelState {
       svr[d] = svg[d] = svb[d] = saved;
   }
 
+  template <bool kCov = kStack>
   __device__ __forceinline__ float stack_cov(float alpha) const {
-    return kStack ? alpha * cov[dclip] : alpha;
+    return kCov ? alpha * cov[dclip] : alpha;
   }
   __device__ __forceinline__ void blend(float fr, float fg, float fb,
                                         float w) {
@@ -206,6 +244,7 @@ struct PixelState {
     b = b + (fb - b) * w;
   }
 
+  template <bool kCov = kStack>
   __device__ __forceinline__ void circle(const float* a) {
     const float cx = a[0] + 0.5f * (a[2] - a[0]);
     const float cy = a[1] + 0.5f * (a[3] - a[1]);
@@ -213,38 +252,42 @@ struct PixelState {
     const float rad = ieee_sqrt((dx * dx) + (dy * dy));
     const float circle_r = tmin(cx - a[0], cy - a[1]);
     float alpha = sat(circle_r - rad);
-    alpha = stack_cov(alpha * clip_cov(a, X, Y));
+    alpha = stack_cov<kCov>(alpha * clip_cov(a, X, Y));
     const float keep = 1.f - alpha;
     r = r * keep;
     g = g * keep;
     b = b * keep;
   }
+  // df2 and a squared field are never -0.
   __device__ __forceinline__ void line(const float* a) {
-    df2 = tmin(df2, line_field_sq(a, X, Y));
+    df2 = min_nan(df2, line_field_sq(a, X, Y));
   }
   __device__ __forceinline__ void fill(const float* a) {
     float d;
     if (fill_delta(a, X, Y, &d)) area = area + d;
   }
+  template <bool kCov = kStack>
   __device__ __forceinline__ void stroke(const float* a) {
     const float df = ieee_sqrt(df2);
     float alpha = sat(a[0] + 0.5f - df);
-    alpha = stack_cov(alpha * clip_cov(a, X, Y));
+    alpha = stack_cov<kCov>(alpha * clip_cov(a, X, Y));
     blend(a[1], a[2], a[3], a[4] * alpha);
     df2 = DF2_INIT;
   }
   __device__ __forceinline__ void fill_edge(const float* a) {
     area = area + edge_delta(a, Y);
   }
+  template <bool kCov = kStack>
   __device__ __forceinline__ void draw_fill(const float* a) {
     const float x = area + a[0];
     float alpha = clip_alpha(x, a[5]);
-    alpha = stack_cov(alpha * clip_cov(a, X, Y));
+    alpha = stack_cov<kCov>(alpha * clip_cov(a, X, Y));
     blend(a[1], a[2], a[3], a[4] * alpha);
     area = 0.f;
   }
+  template <bool kCov = kStack>
   __device__ __forceinline__ void solid(const float* a) {
-    const float alpha = stack_cov(1.f * clip_cov(a, X, Y));
+    const float alpha = stack_cov<kCov>(1.f * clip_cov(a, X, Y));
     blend(a[0], a[1], a[2], a[3] * alpha);
   }
   __device__ __forceinline__ void begin_clip(const float* a) {
@@ -271,6 +314,7 @@ struct PixelState {
     b = svb[ld] + (b - svb[ld]) * alpha;
     dlayer = ld;
   }
+  template <bool kCov = kStack>
   __device__ __forceinline__ void gradient(const float* a, bool radial) {
     float tg;
     if (radial) {
@@ -284,7 +328,7 @@ struct PixelState {
     const float fb = a[6] + (a[10] - a[6]) * tg;
     const float fa = a[7] + (a[11] - a[7]) * tg;
     const float x = area + a[0];
-    const float alpha = stack_cov(tmin(fabsf(x), 1.f));
+    const float alpha = stack_cov<kCov>(min1(fabsf(x)));
     blend(fr, fg, fb, fa * alpha);
     area = 0.f;
   }

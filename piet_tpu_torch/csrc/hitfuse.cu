@@ -7,11 +7,15 @@
 // which a flush would destroy), decodes its tile with the exact f32
 // divmod, and evaluates the reference's fill and stroke sign tests, the
 // FillEdge intercept through div_det, the two command slots, the meta
-// word, the packed sort key and the folded winding delta -- expression for
+// word, the sort key and the folded winding delta -- expression for
 // expression as ops/hitfuse.py:189-353 (and piet_tpu_torch/ops/hitfuse.py,
 // its plain version).  It writes 24 f32 words per record: 0-15 the entry
-// words, then key, h_cand, n_cmds, cexcl, cand_end, d_val, d_cand, 0.
-// Records at or past the live total are all zero with key = +inf.
+// words, then key, h_cand, n_cmds, cexcl, cand_end, d_val, d_cand, tile.
+// The key is tile * stride + item * 2: the packed key for stride > 0, the
+// second key of the unpacked two-key sort (item * 2) for stride == 0;
+// word 23 is the tile, the unpacked sort's first key.  Both are +inf on a
+// record without commands.  Records at or past the live total are all
+// zero with key = tile = +inf.
 //
 // Bound on the H100: ~200 dependent f32 operations per record (div_det's
 // seven candidates dominate) over 57k records at the 1664^2 tiger, and a
@@ -25,6 +29,7 @@ namespace {
 constexpr int SEG_WORDS = 27;
 constexpr int OUT_WORDS = 24;
 constexpr int K_KEY = 16;
+constexpr int K_TILE = 23;
 
 __device__ __forceinline__ float i2f(int v) { return __int_as_float(v); }
 
@@ -44,6 +49,7 @@ __global__ void hitfuse_kernel(const int* __restrict__ seg_rows,
 #pragma unroll
     for (int k = 0; k < OUT_WORDS; ++k) o[k] = 0.f;
     o[K_KEY] = INFINITY;
+    o[K_TILE] = INFINITY;
     return;
   }
   int lo = 0, hi = n_seg;
@@ -175,7 +181,7 @@ __global__ void hitfuse_kernel(const int* __restrict__ seg_rows,
   o[20] = (float)cand_end;
   o[21] = d_ok ? -sign_a : 0.f;
   o[22] = d_ok ? (float)d_cand : 0.f;
-  o[23] = 0.f;
+  o[K_TILE] = n_cmds > 0 ? (float)h_tile : INFINITY;
 }
 
 }  // namespace

@@ -49,8 +49,9 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "piet_candfuse": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "piet_hitfuse": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "piet_sort_f32_i32": [_P, _P, _I, _P],
-    "piet_fine_entries": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "piet_sort": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P,
+                  _P],
+    "piet_fine_entries": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "piet_expand": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "piet_keyed": [_P, _P, _P, _I, _I, _I, _P],
     "piet_gatherm": [_P, _P, _P, _I, _I, _I, _I, _P],

@@ -17,9 +17,11 @@ a record count measured on the TPU, but the fused and staged routes are
 bitwise identical, so the port drops the gate.  The same holds for the
 JAX pass's optional engines: the port always takes ``expand_rows``
 (ops/expand.py), ``keyed_sum`` (ops/keyed.py) and ``gather_monotone``
-(ops/gatherm.py), in both branches.  What the slice does not cover raises
-``NotImplementedError`` naming its ROADMAP.md item: the unpacked two-key
-sort and entry pairing.
+(ops/gatherm.py), in both branches.  Where the packed sort key
+``tile * 2*(NI+1) + item*2 + class`` would reach 2^24 (inexact in f32), the
+sort takes two keys, (tile, item*2 + class), as the JAX pass does.  Entry
+pairing is not ported: it raises ``NotImplementedError`` naming its
+ROADMAP.md item.
 
 Bit patterns: candidate rows, segment rows, the bail colour and the entry
 rows travel as int32.  Colours are NaN patterns as f32 and several words
@@ -357,9 +359,9 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
     the JAX pass's dense output does.
 
     ``taps``: optional dict that receives each kernel's inputs (keys
-    "candfuse", "hitfuse", "sort"; "keyed" and "gatherm" as lists of
-    calls; "expand" on the device-derived segment stage) -- for tests and
-    chip_smoke.py.
+    "candfuse", "hitfuse", "sort" -- the keys tuple, the values and the
+    key bounds; "keyed" and "gatherm" as lists of calls; "expand" on the
+    device-derived segment stage) -- for tests and chip_smoke.py.
     """
     if output not in ("entries", "dense"):
         raise ValueError(f"unknown coarse output {output!r}")
@@ -372,9 +374,10 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
     n_tiles = tiles_x * tiles_y
     thf = float(tile_h)
     stride = 2 * (NI + 1)
-    if not n_tiles * stride < 2 ** 24:
-        _not_covered("the unpacked two-key sort (tiles x items >= 2^24)",
-                     "unpacked sort key fallback")
+    # The packed key is exact in f32 below 2^24; past it the sort takes the
+    # unpacked keys (tile, item*2 + class), each exact on its own.
+    assert n_tiles < 2 ** 24 and 2 * NI + 2 < 2 ** 24, "f32 key range"
+    packed_ok = n_tiles * stride < 2 ** 24
     E = max_hits + max_candidates
     assert E % 128 == 0 and E < 2 ** 24, "entry capacity"
 
@@ -414,7 +417,7 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
     # ---- hit records (kernel B) + per-candidate command counts ---------
     hit_valid = torch.arange(max_hits, dtype=I32, device=dev) < n_hits
     hit_kw = dict(tile_w=tile_w, tile_h=tile_h, tiles_x=tiles_x,
-                  stride=stride)
+                  stride=stride if packed_ok else 0)
     if taps is not None:
         taps["hitfuse"] = ((seg_rows, sp.hit_counts, sp.hit_excl, n_hits),
                            dict(row0=row0, cap=max_hits, **hit_kw))
@@ -559,17 +562,34 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
         dim=1)
     all_rows = torch.cat([hit_rows, cand_rows])
 
-    # ---- global sort: packed key (tile, item, class) -------------------
-    cand_key = W(cand_cmd_valid,
-                 (cand_tile * stride + cand_item * 2 + 1).to(F32), _INF)
-    all_keys = torch.cat([fused["key"], cand_key])
+    # ---- global sort: key (tile, item, class), packed or unpacked -------
+    # Kernel B gives the hit records' keys in the same mode (stride 0:
+    # item * 2 in its key word, the tile in its tile word).
+    if packed_ok:
+        cand_key = W(cand_cmd_valid,
+                     (cand_tile * stride + cand_item * 2 + 1).to(F32), _INF)
+        all_keys = (torch.cat([fused["key"], cand_key]),)
+        bounds = (n_tiles * stride,)
+    else:
+        all_keys = (
+            torch.cat([fused["tile"], W(cand_cmd_valid, cand_tile.to(F32),
+                                         _INF)]),
+            torch.cat([fused["key"], W(cand_cmd_valid,
+                                       (cand_item * 2 + 1).to(F32), _INF)]))
+        bounds = (n_tiles, 2 * NI + 2)
     order_idx = torch.arange(E, dtype=I32, device=dev)
     if taps is not None:
-        taps["sort"] = (all_keys, order_idx)
-    (sorted_key,), sorted_idx = stable_sort_multi((all_keys,), order_idx)
-    live = sorted_key < _INF
-    key_cap = torch.clamp(sorted_key, max=float(n_tiles * stride))
-    e_tile = torch.div(key_cap.to(I32), stride, rounding_mode="floor")
+        taps["sort"] = (all_keys, order_idx, bounds)
+    sorted_keys, sorted_idx = stable_sort_multi(all_keys, order_idx,
+                                                bounds=bounds)
+    live = sorted_keys[0] < _INF
+    if packed_ok:
+        # Dead keys (+inf) cap to n_tiles * stride, which decodes to tile
+        # n_tiles: "no tile".
+        key_cap = torch.clamp(sorted_keys[0], max=float(n_tiles * stride))
+        e_tile = torch.div(key_cap.to(I32), stride, rounding_mode="floor")
+    else:
+        e_tile = torch.clamp(sorted_keys[0], max=float(n_tiles)).to(I32)
     e_rows = all_rows[sorted_idx.long()]
     stream16 = W(live[:, None], e_rows, 0)
     e_meta = stream16[:, W_META].view(F32).to(I32)

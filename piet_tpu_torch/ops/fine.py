@@ -7,8 +7,9 @@ Port of ``piet_tpu/ops/fine.py``.
 the sorted entries [first[t], first[t] + n[t]) of the entry-major (E, 16)
 stream; entries apply in stream order to every pixel of the tile, then the
 polynomial sRGB encode packs RGBA8.  An empty tile writes its present
-colour (the bail solid's bytes, or white).  ``W_RUN`` is not read: run
-dispatch does not change pixels.  The CUDA kernel is ``csrc/fine.cu``.
+colour (the bail solid's bytes, or white).  The plain version does not
+read ``W_RUN``: run dispatch does not change pixels.  The CUDA kernel is
+``csrc/fine.cu``.
 :func:`fine_rasterize_entries_plain` is its plain PyTorch version: a
 tile-vectorized interpreter whose step k applies entry ``first + k`` of
 every tile with ``n > k`` -- all classes present in the step are computed
@@ -221,11 +222,16 @@ def fine_rasterize_entries(first, n_entries, solid, stream, row0=0, *,
             ("first", first, I32, (T,)), ("n_entries", n_entries, I32, (T,)),
             ("solid", solid, I32, (T,)), ("stream", stream, F32, None)):
         kernels.check_cuda_tensor(t, dt, name, shape)
+    if stream.data_ptr() % 16:
+        raise ValueError("stream must be 16-byte aligned")
     out = torch.empty((T // tiles_x * tile_h, tiles_x * tile_w), dtype=I32,
                       device=stream.device)
+    # Scratch for the kernel's dense-first tile order.
+    order = torch.empty((T,), dtype=I32, device=stream.device)
     kernels.launch("fine", "piet_fine_entries", first.data_ptr(),
                    n_entries.data_ptr(), solid.data_ptr(), stream.data_ptr(),
-                   out.data_ptr(), T, tiles_x, tile_w, tile_h, int(row0))
+                   order.data_ptr(), out.data_ptr(), T, tiles_x, tile_w,
+                   tile_h, int(row0))
     return out
 
 

@@ -3,22 +3,26 @@
 Port of ``piet_tpu/ops/hitfuse.py``.  Each (S, 27) segment row expands
 into one record per (segment, tile in its emission rect); each record runs
 the reference's exact fill and stroke sign tests, fills its two command
-slots, and emits its meta word, packed sort key and folded winding delta.
+slots, and emits its meta word, sort keys and folded winding delta.
 Every expression is the JAX module's, in the same order.
 
 Output: one (cap, 24) f32 array per call, 24 words per record:
 
   0-15   the entry words (layout/entry_stream.py word map)
-  16     packed sort key: tile * stride + item * 2, +inf when dead
+  16     sort key: tile * stride + item * 2, +inf when dead.  stride > 0
+         gives the packed key; stride == 0 gives item * 2, the second key
+         of the unpacked two-key sort (ops/coarse.py)
   17     h_cand: the record's candidate slot
   18     n_cmds (0/1/2)
   19     cexcl: the item's first candidate slot
   20     cand_end: one past the item's last candidate slot
   21     d_val: winding-delta value (+-1; 0 = no delta)
   22     d_cand: the delta's candidate slot (0 when d_val == 0)
-  23     zero
+  23     tile: the record's tile, +inf when dead (the unpacked sort's first
+         key; JAX's key 0 at piet_tpu/ops/coarse.py:1093)
 
-Records at or past the live total are all zero with key = +inf.
+A record is dead when it has no command; records at or past the live
+total are all zero with key = tile = +inf.
 The CUDA kernel is ``csrc/hitfuse.cu``; :func:`hit_records_fused_plain`
 is its plain PyTorch version, bit for bit.
 """
@@ -37,7 +41,7 @@ from .cmd_math import div_det, sign
 SEG_WORDS = 27
 OUT_WORDS = 24
 K_KEY, K_CAND, K_NCMDS, K_CEXCL, K_CEND = 16, 17, 18, 19, 20
-K_DVAL, K_DCAND = 21, 22
+K_DVAL, K_DCAND, K_TILE = 21, 22, 23
 
 _INF = float("inf")
 
@@ -49,11 +53,13 @@ def f2i_sat(x: torch.Tensor) -> torch.Tensor:
 
 
 def split_fused(out: torch.Tensor) -> dict:
-    """The (cap, 24) record array as the JAX wrapper's dict of views."""
+    """The (cap, 24) record array as the JAX wrapper's dict of views, and
+    the record's tile (word 23)."""
     return {"rows": out[:, :16], "key": out[:, K_KEY],
             "h_cand": out[:, K_CAND], "n_cmds": out[:, K_NCMDS],
             "cexcl": out[:, K_CEXCL], "cand_end": out[:, K_CEND],
-            "d_val": out[:, K_DVAL], "d_cand": out[:, K_DCAND]}
+            "d_val": out[:, K_DVAL], "d_cand": out[:, K_DCAND],
+            "tile": out[:, K_TILE]}
 
 
 def hit_records_fused_plain(seg_rows, counts, excl, total, row0: int,
@@ -139,8 +145,9 @@ def hit_records_fused_plain(seg_rows, counts, excl, total, row0: int,
         stroke_emit, float(CMD_LINE), float(CMD_FILL_EDGE)), 0.0)
     tag1 = torch.where(slot1_valid, float(CMD_FILL), 0.0)
     meta = (n_cmds + stroke_emit.to(torch.int32) * META_CLEAR_BIT).to(f32)
-    key = torch.where(n_cmds > 0, (h_tile * stride + h_item * 2).to(f32),
-                      _INF)
+    live = n_cmds > 0
+    key = torch.where(live, (h_tile * stride + h_item * 2).to(f32), _INF)
+    tile = torch.where(live, h_tile.to(f32), _INF)
 
     def gate(ok, v):
         return torch.where(ok, v, 0.0)
@@ -178,11 +185,12 @@ def hit_records_fused_plain(seg_rows, counts, excl, total, row0: int,
     out = torch.stack(
         [tag0] + s0 + [z, tag1] + s1 + [meta, z, key, h_cand.to(f32),
                                         n_cmds.to(f32), cexcl.to(f32),
-                                        cand_end.to(f32), d_val, d_cand_f, z],
+                                        cand_end.to(f32), d_val, d_cand_f,
+                                        tile],
         dim=1)
-    # Dead records: all zero, key = +inf (the kernel's contract).
+    # Dead records: all zero, key = tile = +inf (the kernel's contract).
     dead = torch.zeros(OUT_WORDS, dtype=f32, device=out.device)
-    dead[K_KEY] = _INF
+    dead[K_KEY] = dead[K_TILE] = _INF
     return torch.where(valid[:, None], out, dead)
 
 
@@ -197,6 +205,8 @@ def hit_records_fused(seg_rows, counts, excl, total, row0: int, cap: int, *,
       total: () or (1,) int32 live hit count, on the device.
       row0: first tile row of the slab.
       cap: hit capacity.
+      stride: 2 * (max_items + 1) for the packed sort key, 0 for the keys
+        of the unpacked two-key sort.
 
     Returns the (cap, 24) f32 record array (module doc; ``split_fused``
     gives the JAX wrapper's dict of named views).

@@ -1,27 +1,86 @@
-"""Stable sort of the coarse pass's packed keys (kernel C).
+"""Stable sort of the coarse pass's keys (kernel C).
 
-Port of ``piet_tpu/ops/sort.py::stable_sort_multi``.  The record index
-(``val``, unique) rides in the comparison, so the bitonic network's result
-equals a stable sort on the keys.  The plain version is
-``torch.sort(stable=True)``; the CUDA kernel (``csrc/sort.cu``) takes the
-single packed f32 key of the main path.
+Port of ``piet_tpu/ops/sort.py::stable_sort_multi``.  The keys are the
+ones the coarse pass makes: non-negative integers held in f32 below a
+bound (``bounds``, at most 2^24, where f32 stops being exact), and +inf
+for dead records.  The plain version is ``torch.sort(stable=True)``, one
+key at a time from the last; the CUDA kernel (``csrc/sort.cu``) is a
+stable LSD radix sort on the keys' integer values, with +inf mapped to the
+bound, so the result is the same for any ``val``.
+
+:func:`sort_plan` fixes what the kernel does for a call: the digit passes
+(least significant first: the last key's digits, then the first key's)
+and how the pairs are split over blocks.  Up to ``CLUSTER *
+CLUSTER_CHUNK`` pairs the whole sort is one launch on one thread-block
+cluster whose blocks hold the pairs in shared memory; above that it runs
+over device memory, three launches per pass.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from .. import kernels
 
-#: The bitonic kernel sorts at least one shared-memory block of pairs.
-MIN_SORT = 2048
+#: Keys are exact f32 integers below this.
+KEY_LIMIT = 2 ** 24
+#: Bits of one digit pass (256 bins).
+RADIX_BITS = 8
+#: Warps per block of either route; a block's pairs are split into one
+#: contiguous run per warp, ranked in element order.
+WARPS = 32
+#: Pairs held by one block of the cluster (its shared memory holds two
+#: buffers of 8-byte pairs beside the per-warp digit counts).
+CLUSTER_CHUNK = 12288
+#: Blocks of the cluster, above the portable 8: more blocks rank fewer
+#: pairs each (on an H100, 16 blocks sort the 1664^2 tiger's keys faster
+#: than 8: PERF.md).
+CLUSTER = 16
+#: Pairs per block on the device-memory route.
+GLOBAL_TILE = 8192
 
 
-def _next_pow2(n: int) -> int:
-    p = 1
-    while p < n:
-        p *= 2
-    return p
+class SortPlan(NamedTuple):
+    """What the kernel does for one call.
+
+    ``passes``: (key, shift, bits) of each digit pass, first pass first.
+    ``cluster``: blocks of the cluster, or 0 for the device-memory route.
+    ``chunk``: pairs per block (block b holds positions
+    [b * chunk, (b + 1) * chunk))."""
+    passes: Tuple[Tuple[int, int, int], ...]
+    cluster: int
+    chunk: int
+
+
+def radix_passes(bounds: Sequence[int]) -> Tuple[Tuple[int, int, int], ...]:
+    """Digit passes for keys below ``bounds`` (+inf taking the value of the
+    bound itself): the last key's digits first, least significant first,
+    each key's bits split into passes of at most RADIX_BITS, widths as
+    even as they go."""
+    passes = []
+    for sel in reversed(range(len(bounds))):
+        bits = max(int(bounds[sel]).bit_length(), 1)
+        n_pass = -(-bits // RADIX_BITS)
+        shift = 0
+        for p in range(n_pass):
+            w = (bits - shift) // (n_pass - p) + ((bits - shift)
+                                                  % (n_pass - p) > 0)
+            passes.append((sel, shift, w))
+            shift += w
+    return tuple(passes)
+
+
+def sort_plan(n: int, bounds: Sequence[int]) -> SortPlan:
+    """The plan for ``n`` pairs: the cluster, its blocks holding an equal
+    share, while they hold the pairs; the device-memory route past
+    that."""
+    passes = radix_passes(bounds)
+    if n > CLUSTER * CLUSTER_CHUNK:
+        return SortPlan(passes, 0, GLOBAL_TILE)
+    return SortPlan(passes, CLUSTER, max(-(-n // CLUSTER), 1))
 
 
 def stable_sort_multi_plain(keys, val: torch.Tensor):
@@ -35,31 +94,46 @@ def stable_sort_multi_plain(keys, val: torch.Tensor):
     return tuple(k[perm] for k in keys), val[perm]
 
 
-def stable_sort_multi(keys, val: torch.Tensor):
+def stable_sort_multi(keys, val: torch.Tensor,
+                      bounds: Optional[Sequence[int]] = None):
     """Stable lexicographic sort of (keys..., val) by ``keys``.
 
-    ``val`` must be unique (the record index in the coarse pass).  Returns
-    (sorted_keys_tuple, sorted_val).  On CUDA only the single f32 key of
-    the main path is supported: the two-key sort belongs to the unpacked
-    key fallback (ROADMAP.md, Queue 1), which raises in the coarse pass.
-    """
+    Returns (sorted_keys_tuple, sorted_val).  On CUDA it takes one or two
+    f32 keys, each holding integers in [0, bound) or +inf, with
+    ``bounds`` (default 2^24 each) no larger than 2^24; ``val`` is int32."""
     keys = tuple(keys)
     if not kernels.on_cuda(*keys, val):
         return stable_sort_multi_plain(keys, val)
-    if len(keys) != 1:
-        raise NotImplementedError(
-            "two-key sort on CUDA: see ROADMAP.md Queue 1, 'unpacked sort "
-            "key fallback'")
-    (key,) = keys
-    n = key.shape[0]
-    kernels.check_cuda_tensor(key, torch.float32, "key", (n,))
+    if len(keys) not in (1, 2):
+        raise ValueError(f"the sort kernel takes 1 or 2 keys, got {len(keys)}")
+    bounds = tuple(bounds) if bounds is not None else (KEY_LIMIT,) * len(keys)
+    if len(bounds) != len(keys) or not all(0 <= b <= KEY_LIMIT
+                                           for b in bounds):
+        raise ValueError(f"key bounds {bounds}")
+    n = val.shape[0]
+    for i, k in enumerate(keys):
+        kernels.check_cuda_tensor(k, torch.float32, f"key {i}", (n,))
     kernels.check_cuda_tensor(val, torch.int32, "val", (n,))
-    np2 = max(_next_pow2(n), MIN_SORT)
-    k_buf = torch.full((np2,), float("inf"), dtype=torch.float32,
-                       device=key.device)
-    v_buf = torch.arange(np2, dtype=torch.int32, device=key.device)
-    k_buf[:n] = key
-    v_buf[:n] = val
-    kernels.launch("sort", "piet_sort_f32_i32", k_buf.data_ptr(),
-                   v_buf.data_ptr(), np2)
-    return (k_buf[:n],), v_buf[:n]
+    out_keys = tuple(torch.empty_like(k) for k in keys)
+    out_val = torch.empty_like(val)
+    if n == 0:
+        return out_keys, out_val
+    plan = sort_plan(n, bounds)
+    flat = [v for p in plan.passes for v in p]
+    sched = (ctypes.c_int * len(flat))(*flat)
+    # The device-memory route ping-pongs (key, index) pairs through
+    # scratch: two buffers of n pairs, then the digit-major counts.
+    scratch = None
+    if plan.cluster == 0:
+        n_blocks = -(-n // plan.chunk)
+        scratch = torch.empty((4 * n + (1 << RADIX_BITS) * n_blocks,),
+                              dtype=torch.int32, device=val.device)
+    two = len(keys) == 2
+    kernels.launch(
+        "sort", "piet_sort", keys[0].data_ptr(),
+        keys[1].data_ptr() if two else None, val.data_ptr(),
+        out_keys[0].data_ptr(), out_keys[1].data_ptr() if two else None,
+        out_val.data_ptr(), n, bounds[0], bounds[1] if two else 0,
+        len(plan.passes), sched, plan.cluster, plan.chunk,
+        scratch.data_ptr() if scratch is not None else None)
+    return out_keys, out_val

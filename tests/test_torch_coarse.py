@@ -218,24 +218,13 @@ def test_stream_layout_round_trip():
     assert torch.equal(stream_from_jax_layout(blocks), x)
 
 
-@pytest.mark.parametrize("what", ["dense", "pairing", "seg_pre"])
+@pytest.mark.parametrize("what", ["pairing"])
 def test_uncovered_paths_raise(what):
-    """"seg_pre" and "dense": a scene without the host segment stage and
-    the dense output are covered now; on a grid whose packed sort key
-    passes 2^24 they still reach the unpacked two-key sort, which is
-    not."""
+    """Entry pairing is not ported.  (Grids whose packed sort key passes
+    2^24 take the unpacked two-key sort: tests/test_torch_unpacked.py.)"""
     scene = fixtures.get_scene("path_test")
     cfg = fit_capacities(scene, RenderConfig(width=256, height=256))
     dev = device_scene_from_numpy(
         jax.tree.map(np.asarray, prepare_scene(scene, cfg)), "cpu")
-    kw = _kw(cfg)
-    if what == "dense":
-        kw.update(output="dense", cmd_capacity=cfg.cmd_capacity,
-                  tiles_x=4096, tiles_y=4096)
-    elif what == "pairing":
-        kw["pair"] = "compact"
-    else:
-        dev = dev._replace(seg_pre=None)
-        kw.update(tiles_x=4096, tiles_y=4096)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        coarse_rasterize(dev, **kw)
+        coarse_rasterize(dev, pair="compact", **_kw(cfg))

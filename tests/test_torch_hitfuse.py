@@ -6,7 +6,8 @@ tiles (the inputs of tests/test_hitfuse.py), staged once by the JAX
 package and handed to both sides as the same numpy leaves.  Records are
 compared in full: the live prefix word for word, and past the live total
 the dead-record contract (candidates: all-zero rows; hits: all-zero words
-with key = +inf).
+with key = tile = +inf).  Kernel B's plain version is also held in both of
+its key modes (packed, and the unpacked two-key sort's).
 """
 
 import numpy as np
@@ -28,8 +29,9 @@ from piet_tpu.renderer.renderer import prepare_scene  # noqa: E402
 from piet_tpu.scene.svg import make_tiger  # noqa: E402
 from piet_tpu_torch.ops.candfuse import cand_records_fused  # noqa: E402
 from piet_tpu_torch.ops.coarse import cand_inputs  # noqa: E402
-from piet_tpu_torch.ops.hitfuse import (hit_records_fused,  # noqa: E402
-                                        split_fused)
+from piet_tpu_torch.ops.hitfuse import (K_KEY, K_NCMDS,  # noqa: E402
+                                        K_TILE, OUT_WORDS,
+                                        hit_records_fused, split_fused)
 from piet_tpu_torch.renderer.renderer import (  # noqa: E402
     device_scene_from_numpy)
 
@@ -85,10 +87,41 @@ def test_hit_records_match_jax_interpret(staged):
         jax.lax.bitcast_convert_type(jnp.asarray(jsp.seg_rows), jnp.float32),
         jnp.asarray(jsp.hit_counts), jnp.asarray(jsp.hit_excl),
         jnp.int32(total), 0, cfg.max_hits, interpret=True, **kw)
-    assert set(got) == set(want)
+    assert set(got) == set(want) | {"tile"}
     for name in want:
         np.testing.assert_array_equal(_bits(got[name].numpy()),
                                       _bits(want[name]), err_msg=name)
     dead_key = got["key"].numpy()[total:]
     assert np.isinf(dead_key).all()
+    assert np.isinf(got["tile"].numpy()[total:]).all()
     assert not _bits(got["rows"].numpy())[total:].any()
+
+
+def test_hit_records_key_modes(staged):
+    """stride > 0: word 16 is the packed key tile * stride + item * 2;
+    stride == 0: it is item * 2, the unpacked sort's second key.  Word 23
+    (the tile, the unpacked sort's first key) and every other word are the
+    same in both modes; both keys are +inf on records without commands."""
+    cfg, _, dev = staged
+    sp = dev.seg_pre
+    stride = 2 * (cfg.max_items + 1)
+    kw = dict(tile_w=cfg.tile_width, tile_h=cfg.tile_height,
+              tiles_x=cfg.tiles_x)
+    args = (sp.seg_rows, sp.hit_counts, sp.hit_excl, sp.n_hits, 0,
+            cfg.max_hits)
+    packed = hit_records_fused(*args, stride=stride, **kw)
+    unpacked = hit_records_fused(*args, stride=0, **kw)
+    others = [k for k in range(OUT_WORDS) if k != K_KEY]
+    np.testing.assert_array_equal(_bits(packed[:, others].numpy()),
+                                  _bits(unpacked[:, others].numpy()))
+    tile = packed[:, K_TILE].numpy()
+    live = np.isfinite(tile)
+    assert live.sum() > 0
+    assert (packed[:, K_NCMDS].numpy()[live] > 0).all()
+    assert not (packed[:, K_NCMDS].numpy()[~live] > 0).any()
+    pk, uk = packed[:, K_KEY].numpy(), unpacked[:, K_KEY].numpy()
+    assert np.isinf(pk[~live]).all() and np.isinf(uk[~live]).all()
+    t = tile[live].astype(np.int64)
+    np.testing.assert_array_equal(pk[live].astype(np.int64),
+                                  t * stride + uk[live].astype(np.int64))
+    assert (uk[live] < stride).all() and (t < cfg.tiles_x * cfg.tiles_y).all()

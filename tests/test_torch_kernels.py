@@ -131,16 +131,102 @@ def test_cuda_kernels_equal_plain_versions(cuda_inputs):
     hargs, bkw = taps["hitfuse"]
     assert _same_bits(hitfuse.hit_records_fused(*hargs, **bkw),
                       hitfuse.hit_records_fused_plain(*hargs, **bkw))
-    key, val = taps["sort"]
-    (gk,), gv = sort.stable_sort_multi((key,), val)
-    (wk,), wv = sort.stable_sort_multi_plain((key,), val)
-    assert _same_bits(gk, wk) and torch.equal(gv, wv)
+    keys, val, bounds = taps["sort"]
+    gk, gv = sort.stable_sort_multi(keys, val, bounds)
+    wk, wv = sort.stable_sort_multi_plain(keys, val)
+    assert all(_same_bits(g, w) for g, w in zip(gk, wk))
+    assert torch.equal(gv, wv)
     args = (ce.first, ce.n_entries, _solid_to_present_u32(ce.solid),
             ce.stream)
     kw = dict(tile_h=cfg.tile_height, tile_w=cfg.tile_width,
               tiles_x=cfg.tiles_x)
     assert torch.equal(fine.fine_rasterize_entries(*args, **kw),
                        fine.fine_rasterize_entries_plain(*args, **kw))
+
+
+def _sort_case(n, n_keys, bound, seed, val_kind):
+    rng = np.random.default_rng(seed)
+    keys = []
+    for _ in range(n_keys):
+        k = rng.integers(0, bound, n).astype(np.float32)
+        k[rng.uniform(size=n) < 0.3] = np.inf
+        keys.append(torch.from_numpy(k).cuda())
+    val = (torch.arange(n, 0, -1, dtype=torch.int32) if val_kind == "reversed"
+           else torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, n)
+                                 .astype(np.int32)))
+    return tuple(keys), val.cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,n_keys,bound", [
+    (67_584, 1, 412_360),            # the tiger's size: one cluster launch
+    (196_608, 1, 2 ** 24),           # all the cluster holds
+    (150_000, 2, 4096),              # two keys
+    (1 << 20, 1, 2 ** 24),           # the device-memory route
+    (196_609, 2, 2 ** 24),           # the same, one pair past the cluster
+    (5, 1, 3),                       # fewer pairs than blocks
+])
+def test_cuda_sort_equals_plain(n, n_keys, bound):
+    """The radix kernel against successive stable torch.sorts, bitwise, on
+    both routes: dead +inf records, a val that is not increasing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    keys, val = _sort_case(n, n_keys, bound, n + n_keys, "reversed"
+                           if n_keys == 1 else "random")
+    bounds = (bound,) * n_keys
+    kernels.reset_launches()
+    gk, gv = sort.stable_sort_multi(keys, val, bounds)
+    assert kernels.LAUNCHES["sort"] == 1
+    wk, wv = sort.stable_sort_multi_plain(keys, val)
+    assert all(_same_bits(g, w) for g, w in zip(gk, wk))
+    assert torch.equal(gv, wv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,make,size,th,tw", [
+    ("clip_star", lambda: fixtures.make_clip_star(256), 256, 16, 128),
+    ("gradient_demo", lambda: fixtures.make_gradient_demo(256), 256, 16,
+     128),
+    ("holes_demo", lambda: fixtures.make_holes_demo(256), 256, 16, 128),
+    ("tiger_16x16", lambda: make_tiger(scale=1.0), 256, 16, 16),
+])
+def test_cuda_fine_entries_equals_plain(name, make, size, th, tw):
+    """Kernel D's stack path (the group fixtures) and 16x16 tiles against
+    its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    scene = make()
+    cfg = fit_capacities(scene, RenderConfig(width=size, height=size,
+                                             tile_height=th, tile_width=tw))
+    ce = coarse.coarse_rasterize(
+        prepare_scene(scene, cfg, "cuda"), tiles_x=cfg.tiles_x,
+        tiles_y=cfg.tiles_y, tile_w=cfg.tile_width, tile_h=cfg.tile_height,
+        max_segments=cfg.max_segments, max_hits=cfg.max_hits,
+        max_candidates=cfg.max_candidates)
+    args = (ce.first, ce.n_entries, _solid_to_present_u32(ce.solid),
+            ce.stream)
+    kw = dict(tile_h=cfg.tile_height, tile_w=cfg.tile_width,
+              tiles_x=cfg.tiles_x)
+    assert torch.equal(fine.fine_rasterize_entries(*args, **kw),
+                       fine.fine_rasterize_entries_plain(*args, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fine_impl", ["entries", "dense"])
+def test_cuda_unpacked_render_equals_oracle(fine_impl):
+    """A grid whose packed sort key would pass 2^24: the two-key sort on
+    the card, both routes, bitwise against the oracle."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    scene = fixtures.make_cardioid(center=(512.0, 512.0), r=400.0)
+    cfg = dataclasses.replace(fit_capacities(scene, RenderConfig(
+        width=1024, height=1024, tile_height=16, tile_width=16)),
+        max_items=2048)
+    assert cfg.tiles_x * cfg.tiles_y * 2 * (cfg.max_items + 1) >= 2 ** 24
+    kernels.reset_launches()
+    got = Renderer(cfg, device="cuda", fine_impl=fine_impl).render(scene)
+    assert kernels.LAUNCHES["sort"] == 1
+    np.testing.assert_array_equal(got, cpu_render_scene(scene, cfg))
 
 
 def _anim_taps(device):
