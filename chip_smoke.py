@@ -20,8 +20,13 @@ and exits non-zero:
      (the stack path) and on the tiger's at 16x16 tiles; expand, keyed and
      gatherm on the affine-animated tiger's (segments derived on the
      device); fine_dense on the static tiger's dense PTCL in both
-     instantiations (fine_rasterize and fine_rasterize_xla) and, in the
-     group one, on the three fixtures;
+     instantiations (fine_rasterize and fine_rasterize_xla), in the group
+     one on the three fixtures, in both on the tiger's at 16x16 tiles and
+     on the synthetic PTCLs of raster/synth_ptcl.py (tile widths 16, 24,
+     128; group commands first at slots 0-128, streaks across the chunk
+     boundary, counts above the capacity and zero); hitfuse also on the
+     unpacked configuration's inputs (stride 0) and the affine tiger's
+     (segments derived on the device);
   4. the static path: Renderer.for_scene(tiger, 1664, 1664).render() and
      the same at 3840x2160, with the launch counters reset just before
      and read just after each; the images must equal the numpy oracle
@@ -47,8 +52,8 @@ and exits non-zero:
      torch.profiler trace (device-busy share and top device ops), and each
      kernel beside its plain version, its bound and, where one PyTorch call
      computes the same function, that call; then kernel C's device-memory
-     route on 2^20 pairs beside torch.sort, and fine_dense's non-group
-     instantiation.
+     route on 2^20 pairs beside torch.sort, and both fine_dense
+     instantiations beside the device ops of a dense frame.
 
 The line before the last is the kernel table as JSON, each kernel with
 the path whose run gave its launch count; the last line is {"ok": true,
@@ -187,9 +192,10 @@ def row_bytes(n_rows: int, *tensors) -> int:
 
 
 def profile_frames(render_one, card: str, tag: str, frames: int = 10,
-                   top: int = 8) -> None:
+                   top: int = 8) -> float:
     """Trace ``frames`` frames with torch.profiler; print the device-busy
-    share and the ``top`` device ops by time per frame."""
+    share and the ``top`` device ops by time per frame; return the device
+    ops per frame."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -217,6 +223,7 @@ def profile_frames(render_one, card: str, tag: str, frames: int = 10,
                                 key=lambda kv: -kv[1][1])[:top]:
         print(f"  {us / frames / 1e3:.4f} ms/frame in {n / frames:.0f} "
               f"launches: {name[:90]}", flush=True)
+    return len(kern) / frames
 
 
 def affine_tiger(scene, dev, fine_impl="entries"):
@@ -343,6 +350,7 @@ def main() -> int:
     from piet_tpu_torch.host import cpu_render_scene, make_tiger
     from piet_tpu_torch.ops import (candfuse, coarse, expand, fine, fine_xla,
                                     gatherm, hitfuse, keyed, sort)
+    from piet_tpu_torch.raster.synth_ptcl import synth_dense_ptcl
     from piet_tpu_torch.renderer.renderer import (Renderer,
                                                   _solid_to_present_u32,
                                                   fetch_scene)
@@ -405,6 +413,16 @@ def main() -> int:
         dense_in.append(dense_inputs(gr.prepare(group_scenes[name]),
                                      gr.config))
     tiger_dense = dense_in[0]
+    # Both instantiations beyond the tiger at 32x128: its dense PTCL at
+    # 16x16 tiles (4 pixels a thread) and the synthetic PTCLs.
+    r16 = Renderer.for_scene(scene, 1664, 1664, tile_height=16,
+                             tile_width=16, device=dev)
+    both_in = [tiger_dense, dense_inputs(r16.prepare(scene), r16.config)]
+    for tw, groups in itertools.product((16, 24, 128), (True, False)):
+        both_in.append(tuple(torch.from_numpy(a).to(dev) for a in
+                             synth_dense_ptcl(tw, tile_w=tw, tile_h=16,
+                                              groups=groups))
+                       + (dict(tile_h=16, tile_w=tw, cmd_capacity=256),))
     # Kernel D beyond the tiger (whose tiles hold no group command: the
     # stackless path): the group fixtures' entry streams (the stack path)
     # and the tiger's at 16x16 tiles.
@@ -412,8 +430,6 @@ def main() -> int:
     for name, gr in group_renderers.items():
         fine_cases.append((f"{name} 1024x1024", *entries_inputs(
             gr.prepare(group_scenes[name]), gr.config)))
-    r16 = Renderer.for_scene(scene, 1664, 1664, tile_height=16,
-                             tile_width=16, device=dev)
     fine_cases.append(("tiger 1664x1664, 16x16 tiles",
                        *entries_inputs(r16.prepare(scene), r16.config)))
 
@@ -424,6 +440,9 @@ def main() -> int:
     coarse.coarse_rasterize(Renderer(unp_cfg, dev).prepare(cardioid),
                             taps=utaps, **coarse_kw(unp_cfg))
     sort_keys, sort_val, sort_bounds = taps["sort"]
+    # Kernel B on the static tiger's inputs, the unpacked configuration's
+    # (stride 0) and the affine tiger's (segments derived on the device).
+    hit_cases = [taps["hitfuse"], utaps["hitfuse"], atap["hitfuse"]]
     gen = torch.Generator(device=dev).manual_seed(4)
     big_n = 1 << 20
     big_key = torch.randint(0, 2 ** 24, (big_n,), generator=gen,
@@ -497,9 +516,13 @@ def main() -> int:
         "hitfuse": dict(
             route="cuda", source="piet_tpu_torch/csrc/hitfuse.cu",
             replaces="piet_tpu/ops/hitfuse.py:73",
-            run=lambda: (hitfuse.hit_records_fused(*hit_args, **bkw),),
-            plain=lambda: (hitfuse.hit_records_fused_plain(*hit_args,
-                                                           **bkw),),
+            run=lambda: tuple(hitfuse.hit_records_fused(*a, **k)
+                              for a, k in hit_cases),
+            plain=lambda: tuple(hitfuse.hit_records_fused_plain(*a, **k)
+                                for a, k in hit_cases),
+            time=lambda: (hitfuse.hit_records_fused(*hit_args, **bkw),),
+            time_plain=lambda: (hitfuse.hit_records_fused_plain(*hit_args,
+                                                                **bkw),),
             library=None,
             bytes=hit_bytes),
         # Compared on the four cases; timed on the tiger's keys.
@@ -562,20 +585,21 @@ def main() -> int:
                                                         gather_lib_idx)
                                   for i in ii),
             bytes=gather_bytes),
-        # Compared in both instantiations (the group one on all four
-        # PTCLs); timed as the dense frame runs it: the group one on the
-        # tiger.
+        # Compared in both instantiations (the group one on the tiger's
+        # and the fixtures' PTCLs, both on the tiger's, the 16x16 tiger's
+        # and the synthetic ones); timed as the dense frame runs it: the
+        # group one on the tiger.
         "fine_dense": dict(
             route="cuda", source="piet_tpu_torch/csrc/fine_dense.cu",
             replaces="piet_tpu/ops/fine.py:65",
-            run=lambda: (fine.fine_rasterize(*tiger_dense[:3],
-                                             **tiger_dense[3]),) + tuple(
+            run=lambda: tuple(fine.fine_rasterize(*d[:3], **d[3])
+                              for d in both_in) + tuple(
                 fine_xla.fine_rasterize_xla(*d[:3], **d[3])
-                for d in dense_in),
-            plain=lambda: (fine.fine_rasterize_plain(*tiger_dense[:3],
-                                                     **tiger_dense[3]),)
-            + tuple(fine_xla.fine_rasterize_xla_plain(*d[:3], **d[3])
-                    for d in dense_in),
+                for d in dense_in + both_in[1:]),
+            plain=lambda: tuple(fine.fine_rasterize_plain(*d[:3], **d[3])
+                                for d in both_in) + tuple(
+                fine_xla.fine_rasterize_xla_plain(*d[:3], **d[3])
+                for d in dense_in + both_in[1:]),
             time=lambda: (fine_xla.fine_rasterize_xla(*tiger_dense[:3],
                                                       **tiger_dense[3]),),
             time_plain=lambda: (fine_xla.fine_rasterize_xla_plain(
@@ -753,6 +777,7 @@ def main() -> int:
                    if k != "fine_dense"), launches
 
     # ---- 6. timing ------------------------------------------------------
+    dense_ops = {}
     for impl, (w, h) in itertools.product(("entries", "dense"),
                                           ((1664, 1664), (3840, 2160))):
         r = Renderer.for_scene(scene, w, h, tile_height=32, tile_width=128,
@@ -789,7 +814,9 @@ def main() -> int:
               f"CUDA events per frame); pipelined wall {wall:.3f} ms/frame; "
               f"device {frame_dev:.3f} ms/frame; coarse {t_coarse:.3f} ms, "
               f"fine {t_fine:.3f} ms", flush=True)
-        profile_frames(lambda: r.render_device(d), card, tag)
+        ops = profile_frames(lambda: r.render_device(d), card, tag)
+        if impl == "dense":
+            dense_ops[w, h] = ops
 
     for tag, render_t in (("affine tiger 1664x1664", aff_render),
                           ("animated 1024x1024", anim_render)):
@@ -830,13 +857,18 @@ def main() -> int:
     print(f"timing kernel sort, 2^20 pairs, 25-bit keys [{card}]: "
           f"{t_big:.4f} ms device (device-memory route), torch.sort "
           f"{t_big_lib:.4f} ms", flush=True)
-    # The dense kernel's other instantiation (fine_rasterize, the TPU
-    # kernel's own tag map), on the same PTCL.
+    # Both instantiations of the dense kernel on the tiger's PTCL (the
+    # group one serves the dense frame; fine_rasterize is the TPU kernel's
+    # own tag map), beside the device ops of a dense frame (phase 6's
+    # profile).
     t_ng = time_ms(lambda: fine.fine_rasterize(*tiger_dense[:3],
                                                **tiger_dense[3]),
                    reps=20, warm=2)
-    print(f"timing kernel fine_dense, non-group instantiation [{card}]: "
-          f"{t_ng:.4f} ms device on the same tiger PTCL", flush=True)
+    print(f"timing kernel fine_dense, both instantiations [{card}]: group "
+          f"{table['fine_dense']['ms']:.4f} ms, non-group {t_ng:.4f} ms "
+          f"device on the static 1664x1664 tiger's PTCL; "
+          f"{dense_ops[1664, 1664]:.0f} device ops per dense frame",
+          flush=True)
 
     # Each kernel's launches on a path that runs it: the affine tiger's two
     # frames (entries route) for the seven, one dense static tiger frame

@@ -215,16 +215,10 @@ struct PixelState {
   int dclip = 0, dlayer = 0;
   float X, Y;
 
-  PixelState() = default;
-  // ``saved``: the initial saved-rgb planes (1 in the entry-stream kernel,
-  // 0 in the dense group interpreter, as their JAX counterparts start).
-  __device__ __forceinline__ PixelState(float x, float y, float saved)
-      : X(x), Y(y) {
-    init_stacks(saved);
-  }
-  // The stacks at their start: full coverage, ``saved`` planes.  (A
-  // state built by the default constructor may set them only when its
-  // first group command comes: nothing reads them before.)
+  // The stacks at their start: full coverage, ``saved`` planes (1 in the
+  // entry-stream kernel, 0 in the dense group interpreter, as their JAX
+  // counterparts start).  The fine kernels set them only when their first
+  // group command comes: nothing reads them before.
   __device__ __forceinline__ void init_stacks(float saved) {
 #pragma unroll
     for (int d = 0; d < (kStack ? MAX_GROUP_DEPTH + 1 : 1); ++d) cov[d] = 1.f;

@@ -19,8 +19,9 @@
 // clamps one instruction each where that is exact.  The design spends as
 // little as it can on anything else:
 //
-// - A block is a band of a tile, each thread R = 8 neighbouring pixels of
-//   one row (16 x 8 threads, a 128 x 8 band, four blocks per 128 x 32
+// - A block is a band of a tile, each thread R neighbouring pixels of one
+//   row (fine_common.cuh: R = 8 on tiles 64 pixels wide or more, 4 below;
+//   at 128 x 32 tiles 16 x 8 threads, a 128 x 8 band, four blocks per
 //   tile), all R pixels' state (r, g, b, squared distance field, area) in
 //   registers.  Each entry's tag and operands are read and dispatched once
 //   per R pixels, and every term that depends on the row alone is computed
@@ -42,47 +43,24 @@
 // - Run dispatch: the W_RUN word of a plain-fill or line entry holds the
 //   remaining length of its streak of same-class entries in the tile;
 //   the streak runs in a loop without tag checks, in stream order.
-// - Dense tiles first: one block orders the tiles by the bit length of
-//   their entry count, heaviest first (tile_order, a second launch), and
-//   the main grid, one block per band, takes its tiles in that order,
-//   a tile's bands side by side.  Blocks go out roughly in index order, so
-//   the longest blocks start first and the short ones fill in behind them
-//   instead of leaving a dense tile alone at the end.  The order only
-//   schedules: blocks are independent, so any order gives the same
-//   pixels.
-#include "cmd_math.cuh"
+// - Dense tiles first (fine_common.cuh's tile_order, a second launch).
+#include "fine_common.cuh"
 
 namespace {
 
 using namespace piet;
 
 constexpr int CHUNK = 32;                   // entries per stage
-constexpr int R = 8;                        // pixels of a row per thread
-constexpr int THREADS = 128;                // threads per block at most
 constexpr int ENTRY_VEC = ENTRY_WORDS / 4;  // 16-byte words per entry
 constexpr int W_RUN = 15;
-constexpr int ORDER_THREADS = 1024;
-constexpr int ORDER_BINS = 32;  // by bit length of the entry count
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
+template <int R>
 using Span = PixelState<true>[R];
 
 // One entry on the thread's R pixels; w holds its 16 words.  kCov: with
 // the clip-coverage multiply (after a group command).
-template <bool kCov>
-__device__ __forceinline__ void apply_entry(Span& s,
+template <bool kCov, int R>
+__device__ __forceinline__ void apply_entry(Span<R>& s,
                                             const float (&w)[ENTRY_WORDS]) {
   const float* a0 = w + W_S0_ARG;  // slot-0 operand words 0..11
   const float* a1 = w + W_S1_ARG;  // slot-1 operand words 0..4
@@ -157,8 +135,8 @@ __device__ __forceinline__ void apply_entry(Span& s,
 // Entries [e, cnt) of a staged chunk.  Without the coverage multiply
 // (kCov = false) it stops at the first group command and returns its
 // index; otherwise it returns cnt.
-template <bool kCov>
-__device__ __forceinline__ int run_chunk(Span& s,
+template <bool kCov, int R>
+__device__ __forceinline__ int run_chunk(Span<R>& s,
                                          const float4* __restrict__ ents,
                                          int e, int cnt) {
   while (e < cnt) {
@@ -195,41 +173,14 @@ __device__ __forceinline__ int run_chunk(Span& s,
       e += len;
       continue;
     }
-    apply_entry<kCov>(s, w);
+    apply_entry<kCov, R>(s, w);
     ++e;
   }
   return cnt;
 }
 
-// order[0..n_tiles): the tiles by decreasing bit length of their entry
-// count (ties in no fixed order).  One block.
-__global__ void __launch_bounds__(ORDER_THREADS)
-tile_order(const int* __restrict__ n_entries, int n_tiles,
-           int* __restrict__ order) {
-  __shared__ unsigned cnt[ORDER_BINS];
-  const int tid = threadIdx.x;
-  const auto bin = [&](int t) {
-    return ORDER_BINS - 1 - (32 - __clz(max(n_entries[t], 0)));
-  };
-  if (tid < ORDER_BINS) cnt[tid] = 0u;
-  __syncthreads();
-  for (int t = tid; t < n_tiles; t += ORDER_THREADS)
-    atomicAdd(&cnt[bin(t)], 1u);
-  __syncthreads();
-  if (tid == 0) {
-    unsigned run = 0u;
-    for (int b = 0; b < ORDER_BINS; ++b) {
-      const unsigned c = cnt[b];
-      cnt[b] = run;
-      run += c;
-    }
-  }
-  __syncthreads();
-  for (int t = tid; t < n_tiles; t += ORDER_THREADS)
-    order[atomicAdd(&cnt[bin(t)], 1u)] = t;
-}
-
 // Block i: band (i % per_tile) of tile order[i / per_tile].
+template <int R>
 __global__ void __launch_bounds__(THREADS)
 fine_entries_kernel(const int* __restrict__ first,
                     const int* __restrict__ n_entries,
@@ -239,12 +190,9 @@ fine_entries_kernel(const int* __restrict__ first,
                     unsigned* __restrict__ out, int tiles_x, int tile_w,
                     int tile_h, int row0, int col_groups, int per_tile) {
   __shared__ float4 ents[2][CHUNK * ENTRY_VEC];
-  const int item = blockIdx.x / per_tile;
-  const int sub = blockIdx.x % per_tile;
-  const int t = order[item];
   // This thread's pixels: columns c0 .. c0 + R - 1 of tile row ``row``.
-  const int c0 = ((sub % col_groups) * blockDim.x + threadIdx.x) * R;
-  const int row = (sub / col_groups) * blockDim.y + threadIdx.y;
+  const BandPos bp = band_pos<R>(order, col_groups, per_tile);
+  const int t = bp.t, c0 = bp.c0, row = bp.row;
   const bool row_live = row < tile_h;
   const int ty_local = t / tiles_x;
   const int tx = t % tiles_x;
@@ -260,7 +208,7 @@ fine_entries_kernel(const int* __restrict__ first,
     return;
   }
   const float Y = (float)((row0 + ty_local) * tile_h) + (float)row;
-  Span s;  // r, g, b, df2, area at their start; stacks unset
+  Span<R> s;  // r, g, b, df2, area at their start; stacks unset
 #pragma unroll
   for (int k = 0; k < R; ++k) {
     s[k].X = (float)(tx * tile_w) + (float)(c0 + k);
@@ -289,14 +237,14 @@ fine_entries_kernel(const int* __restrict__ first,
     const int cnt = min(CHUNK, n - c * CHUNK);
     int e = 0;
     if (!cov) {
-      e = run_chunk<false>(s, ents[c & 1], 0, cnt);
+      e = run_chunk<false, R>(s, ents[c & 1], 0, cnt);
       cov = e < cnt;
       if (cov) {
 #pragma unroll
         for (int k = 0; k < R; ++k) s[k].init_stacks(1.f);
       }
     }
-    if (cov) run_chunk<true>(s, ents[c & 1], e, cnt);
+    if (cov) run_chunk<true, R>(s, ents[c & 1], e, cnt);
     __syncthreads();  // buffer c & 1 is free for chunk c + 2
   }
 #pragma unroll
@@ -316,23 +264,21 @@ extern "C" int piet_fine_entries(const void* first, const void* n_entries,
   if (n_tiles <= 0) return 0;
   if (tile_w <= 0 || tile_h <= 0 || tile_w > 1024 || order == nullptr)
     return (int)cudaErrorInvalidValue;
-  const int bx = min((tile_w + R - 1) / R, THREADS);
-  const int col_groups = (tile_w + bx * R - 1) / (bx * R);
-  const int ny = max(1, min(THREADS / bx, tile_h));
-  const int bands = (tile_h + ny - 1) / ny;
-  const int per_tile = col_groups * bands;
-  if ((long long)n_tiles * per_tile > 0x7FFFFFFFLL)
+  const Bands b = band_layout(tile_w, tile_h);
+  if ((long long)n_tiles * b.per_tile > 0x7FFFFFFFLL)
     return (int)cudaErrorInvalidValue;
   int* ord = static_cast<int*>(order);
   const int* ne = static_cast<const int*>(n_entries);
-  tile_order<<<1, ORDER_THREADS, 0, stream>>>(ne, n_tiles, ord);
-  const cudaError_t err = cudaGetLastError();
+  const cudaError_t err = launch_tile_order(ne, n_tiles, 0x7FFFFFFF, ord,
+                                            stream);
   if (err != cudaSuccess) return (int)err;
-  fine_entries_kernel<<<n_tiles * per_tile, dim3(bx, ny), 0, stream>>>(
+  const auto kernel = b.r == 8 ? fine_entries_kernel<8>
+                               : fine_entries_kernel<4>;
+  kernel<<<n_tiles * b.per_tile, dim3(b.bx, b.ny), 0, stream>>>(
       static_cast<const int*>(first), ne,
       static_cast<const unsigned*>(present),
       static_cast<const float4*>(stream_p), ord,
-      static_cast<unsigned*>(out), tiles_x, tile_w, tile_h, row0, col_groups,
-      per_tile);
+      static_cast<unsigned*>(out), tiles_x, tile_w, tile_h, row0,
+      b.col_groups, b.per_tile);
   return (int)cudaGetLastError();
 }

@@ -17,47 +17,73 @@
 // record without commands.  Records at or past the live total are all
 // zero with key = tile = +inf.
 //
-// Bound on the H100: ~200 dependent f32 operations per record (div_det's
-// seven candidates dominate) over 57k records at the 1664^2 tiger, and a
-// 16-step search; a few microseconds of one wave.  The TPU kernel expanded
-// rows through the MXU in quarter-byte planes; here each thread gathers its
-// own row, so no transport encoding is needed.
+// Bound on the H100: bytes -- 96 bytes written per record over the fitted
+// capacity (~90k records, 8.6 MB at the 1664^2 tiger), against ~200
+// dependent f32 operations per live record (div_det's seven candidates
+// dominate) that a wave of 128-record blocks hides.  The TPU kernel
+// expanded rows through the MXU in quarter-byte planes and received a
+// lower bound of each block's segments by scalar prefetch; here:
+//
+// - A block of 128 records finds the segment of its first and of its last
+//   live record once, each by a one-warp 32-way search (32 probes a step,
+//   a ballot picks the next range; about four dependent loads over 2^16
+//   segments).  Each thread then binary-searches only the segments its
+//   block spans, a few, in lines the block has in L1.
+// - A thread writes its 24 words into the block's rows in shared memory
+//   (12 KB), and the block writes them out as one contiguous span of
+//   16-byte words, so every warp store fills whole 32-byte sectors (a
+//   thread's own scalar stores 96 bytes apart used 4 bytes of each).
+// - Blocks wholly past the live total write the dead records' constant
+//   pattern the same coalesced way, with no search and no segment read.
 #include "cmd_math.cuh"
 
 namespace {
 
 constexpr int SEG_WORDS = 27;
 constexpr int OUT_WORDS = 24;
+constexpr int OUT_VEC = OUT_WORDS / 4;  // 16-byte words per record
 constexpr int K_KEY = 16;
 constexpr int K_TILE = 23;
+constexpr int BLOCK = 128;              // records per block
+constexpr unsigned FULL = 0xFFFFFFFFu;
 
 __device__ __forceinline__ float i2f(int v) { return __int_as_float(v); }
 
-__global__ void hitfuse_kernel(const int* __restrict__ seg_rows,
-                               const int* __restrict__ counts,
-                               const int* __restrict__ excl,
-                               const int* __restrict__ total_p,
-                               float* __restrict__ out, int n_seg, int cap,
-                               int tile_w, int tile_h, int tiles_x,
-                               int stride, int row0) {
-  using namespace piet;
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= cap) return;
-  float* o = out + (size_t)p * OUT_WORDS;
-  const int total = *total_p;
-  if (p >= total) {
-#pragma unroll
-    for (int k = 0; k < OUT_WORDS; ++k) o[k] = 0.f;
-    o[K_KEY] = INFINITY;
-    o[K_TILE] = INFINITY;
-    return;
-  }
-  int lo = 0, hi = n_seg;
+// Word k of a dead record: zero, key = tile = +inf.
+__device__ __forceinline__ float dead_word(int k) {
+  return (k == K_KEY || k == K_TILE) ? INFINITY : 0.f;
+}
+
+// The first segment in [0, n_seg) whose inclusive hit cumsum exceeds p
+// (n_seg when none), by one warp: each step probes 32 evenly spaced
+// segments of the range left and keeps the gap after the last probe that
+// does not exceed p.  Every lane returns the answer.
+__device__ int warp_search(const int* __restrict__ counts,
+                           const int* __restrict__ excl, int n_seg, int p) {
+  const int lane = threadIdx.x & 31;
+  int lo = 0, hi = n_seg;  // the answer lies in [lo, hi]
   while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (excl[mid] + counts[mid] > p) hi = mid; else lo = mid + 1;
+    const int step = (hi - lo + 31) / 32;
+    const int q = lo + lane * step;
+    // Probes at or past hi count as exceeding p (the answer is <= hi).
+    const bool gt = q >= hi || excl[q] + counts[q] > p;
+    const unsigned m = __ballot_sync(FULL, gt);
+    const int f = m ? __ffs(m) - 1 : 32;  // the first exceeding probe
+    if (f == 0) break;                    // the answer is lo
+    const int q_last = lo + (f - 1) * step;
+    lo = q_last + 1;
+    if (f < 32) hi = min(hi, lo + step - 1);
   }
-  const int* row = seg_rows + (size_t)lo * SEG_WORDS;
+  return lo;
+}
+
+// Record p of segment row ``row`` (27 words): its 24 words into w.
+__device__ __forceinline__ void hit_record(const int* __restrict__ row,
+                                           int p, float (&w)[OUT_WORDS],
+                                           int tile_w, int tile_h,
+                                           int tiles_x, int stride,
+                                           int row0) {
+  using namespace piet;
   const float h_sx = i2f(row[0]), h_sy = i2f(row[1]), h_ex = i2f(row[2]),
               h_ey = i2f(row[3]);
   const float h_a = i2f(row[4]), h_b = i2f(row[5]), h_c = i2f(row[6]);
@@ -158,30 +184,85 @@ __global__ void hitfuse_kernel(const int* __restrict__ seg_rows,
   const bool d_ok = del_ok && (tx_eff <= bx1);
   const int d_cand = cexcl + (h_ty - by0) * bw + (tx_eff - bx0);
 
-  o[0] = tag0;
-  o[1] = slot0_valid ? (stroke_emit ? h_sx : s00) : 0.f;
-  o[2] = slot0_valid ? (stroke_emit ? h_sy : y_edge) : 0.f;
-  o[3] = slot0_valid ? (stroke_emit ? h_ex : 0.f) : 0.f;
-  o[4] = slot0_valid ? (stroke_emit ? h_ey : 0.f) : 0.f;
-  o[5] = slot0_valid ? (stroke_emit ? h_hw : 0.f) : 0.f;
-  o[6] = slot0_valid ? (stroke_emit ? h_invd : 0.f) : 0.f;
-  o[7] = 0.f;
-  o[8] = tag1;
-  o[9] = slot1_valid ? (fill_emit_edge ? clip_sx : h_sx) : 0.f;
-  o[10] = slot1_valid ? (fill_emit_edge ? clip_sy : h_sy) : 0.f;
-  o[11] = slot1_valid ? (fill_emit_edge ? clip_ey : h_ey) : 0.f;
-  o[12] = slot1_valid ? h_m : 0.f;
-  o[13] = slot1_valid ? h_K : 0.f;
-  o[14] = meta;
-  o[15] = 0.f;
-  o[16] = key;
-  o[17] = (float)h_cand;
-  o[18] = (float)n_cmds;
-  o[19] = (float)cexcl;
-  o[20] = (float)cand_end;
-  o[21] = d_ok ? -sign_a : 0.f;
-  o[22] = d_ok ? (float)d_cand : 0.f;
-  o[K_TILE] = n_cmds > 0 ? (float)h_tile : INFINITY;
+  w[0] = tag0;
+  w[1] = slot0_valid ? (stroke_emit ? h_sx : s00) : 0.f;
+  w[2] = slot0_valid ? (stroke_emit ? h_sy : y_edge) : 0.f;
+  w[3] = slot0_valid ? (stroke_emit ? h_ex : 0.f) : 0.f;
+  w[4] = slot0_valid ? (stroke_emit ? h_ey : 0.f) : 0.f;
+  w[5] = slot0_valid ? (stroke_emit ? h_hw : 0.f) : 0.f;
+  w[6] = slot0_valid ? (stroke_emit ? h_invd : 0.f) : 0.f;
+  w[7] = 0.f;
+  w[8] = tag1;
+  w[9] = slot1_valid ? (fill_emit_edge ? clip_sx : h_sx) : 0.f;
+  w[10] = slot1_valid ? (fill_emit_edge ? clip_sy : h_sy) : 0.f;
+  w[11] = slot1_valid ? (fill_emit_edge ? clip_ey : h_ey) : 0.f;
+  w[12] = slot1_valid ? h_m : 0.f;
+  w[13] = slot1_valid ? h_K : 0.f;
+  w[14] = meta;
+  w[15] = 0.f;
+  w[16] = key;
+  w[17] = (float)h_cand;
+  w[18] = (float)n_cmds;
+  w[19] = (float)cexcl;
+  w[20] = (float)cand_end;
+  w[21] = d_ok ? -sign_a : 0.f;
+  w[22] = d_ok ? (float)d_cand : 0.f;
+  w[K_TILE] = n_cmds > 0 ? (float)h_tile : INFINITY;
+}
+
+__global__ void __launch_bounds__(BLOCK)
+hitfuse_kernel(const int* __restrict__ seg_rows,
+               const int* __restrict__ counts,
+               const int* __restrict__ excl,
+               const int* __restrict__ total_p, float4* __restrict__ out,
+               int n_seg, int cap, int tile_w, int tile_h, int tiles_x,
+               int stride, int row0) {
+  __shared__ float4 rows[BLOCK * OUT_VEC];
+  __shared__ int span[2];
+  const int p0 = blockIdx.x * BLOCK;
+  const int n_rec = min(BLOCK, cap - p0);
+  const int total = *total_p;
+  float4* dst = out + (size_t)p0 * OUT_VEC;
+  if (p0 >= total) {  // wholly dead: the constant pattern, coalesced
+    for (int i = threadIdx.x; i < n_rec * OUT_VEC; i += BLOCK) {
+      const int k = (i % OUT_VEC) * 4;
+      dst[i] = make_float4(dead_word(k), dead_word(k + 1), dead_word(k + 2),
+                           dead_word(k + 3));
+    }
+    return;
+  }
+  // The segments of the block's first and last live records.
+  if (threadIdx.x < 64) {
+    const int wp = threadIdx.x < 32 ? p0 : min(p0 + n_rec, total) - 1;
+    const int sw = warp_search(counts, excl, n_seg, wp);
+    if ((threadIdx.x & 31) == 0) span[threadIdx.x >> 5] = sw;
+  }
+  __syncthreads();
+  const int p = p0 + threadIdx.x;
+  if (threadIdx.x < n_rec) {
+    float w[OUT_WORDS];
+    if (p >= total) {
+#pragma unroll
+      for (int k = 0; k < OUT_WORDS; ++k) w[k] = dead_word(k);
+    } else {
+      int lo = span[0], hi = span[1];
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (excl[mid] + counts[mid] > p) hi = mid; else lo = mid + 1;
+      }
+      // Clamped to the last segment (a total above the hit sum), as the
+      // plain version's owner.
+      lo = max(min(lo, n_seg - 1), 0);
+      hit_record(seg_rows + (size_t)lo * SEG_WORDS, p, w, tile_w, tile_h,
+                 tiles_x, stride, row0);
+    }
+#pragma unroll
+    for (int v = 0; v < OUT_VEC; ++v)
+      rows[threadIdx.x * OUT_VEC + v] =
+          make_float4(w[4 * v], w[4 * v + 1], w[4 * v + 2], w[4 * v + 3]);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n_rec * OUT_VEC; i += BLOCK) dst[i] = rows[i];
 }
 
 }  // namespace
@@ -192,11 +273,10 @@ extern "C" int piet_hitfuse(const void* seg_rows, const void* counts,
                             int tiles_x, int stride, int row0,
                             cudaStream_t stream) {
   if (cap <= 0) return 0;
-  const int threads = 128;
-  hitfuse_kernel<<<(cap + threads - 1) / threads, threads, 0, stream>>>(
+  hitfuse_kernel<<<(cap + BLOCK - 1) / BLOCK, BLOCK, 0, stream>>>(
       static_cast<const int*>(seg_rows), static_cast<const int*>(counts),
       static_cast<const int*>(excl), static_cast<const int*>(total),
-      static_cast<float*>(out), n_seg, cap, tile_w, tile_h, tiles_x, stride,
+      static_cast<float4*>(out), n_seg, cap, tile_w, tile_h, tiles_x, stride,
       row0);
   return (int)cudaGetLastError();
 }

@@ -55,7 +55,7 @@ _SIGNATURES = {
     "piet_expand": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "piet_keyed": [_P, _P, _P, _I, _I, _I, _P],
     "piet_gatherm": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "piet_fine_dense": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "piet_fine_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _LIB = None

@@ -367,14 +367,16 @@ def launch_dense(counts, tags, args, row0, *, tile_h: int, tile_w: int,
             ("tags", tags, I32, (T, cmd_capacity)),
             ("args", args, F32, (T, cmd_capacity * ARG_WORDS))):
         kernels.check_cuda_tensor(t, dt, name, shape)
-    if args.data_ptr() % 16:
-        raise ValueError("args must be 16-byte aligned")
+    if tags.data_ptr() % 16 or args.data_ptr() % 16:
+        raise ValueError("tags and args must be 16-byte aligned")
     out = torch.empty((tiles_y * tile_h, tiles_x * tile_w), dtype=I32,
                       device=args.device)
+    # Scratch for the kernel's dense-first tile order.
+    order = torch.empty((T,), dtype=I32, device=args.device)
     kernels.launch("fine_dense", "piet_fine_dense", counts.data_ptr(),
-                   tags.data_ptr(), args.data_ptr(), out.data_ptr(), T,
-                   tiles_x, tile_w, tile_h, cmd_capacity, int(row0),
-                   int(groups))
+                   tags.data_ptr(), args.data_ptr(), order.data_ptr(),
+                   out.data_ptr(), T, tiles_x, tile_w, tile_h, cmd_capacity,
+                   int(row0), int(groups))
     return out
 
 

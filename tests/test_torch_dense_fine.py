@@ -9,7 +9,11 @@ XLA:CPU, which may contract products into FMAs, so those images are held
 to the tests/_imgcmp.py policy.  The port's plain interpreters round every
 operation on their own and are held bitwise to the oracle's
 ``cpu_render_ptcl`` off bailed tiles (the present composite owns those).
-The PTCLs are the oracle's own (``cpu_tile_scene``).
+The PTCLs are the oracle's own (``cpu_tile_scene``), and synthetic ones
+(``raster/synth_ptcl.py``) that put group commands and command streaks
+where the CUDA kernel changes course (slots 0, 31, 32, 127, 128 and
+across the 128-command chunk), a count above the capacity and a zero
+count, at tile widths 16, 24 and 128.
 """
 
 import numpy as np
@@ -33,6 +37,7 @@ from piet_tpu_torch.ops.fine_xla import \
 from piet_tpu_torch.raster.cpu_fine import cpu_render_ptcl  # noqa: E402
 from piet_tpu_torch.raster.cpu_tiler import cpu_tile_scene  # noqa: E402
 from piet_tpu_torch.raster.ptcl import ARG_WORDS, CMD_BEGIN_CLIP  # noqa
+from piet_tpu_torch.raster.synth_ptcl import synth_dense_ptcl  # noqa: E402
 from piet_tpu_torch.renderer.capacity import fit_capacities  # noqa: E402
 from piet_tpu_torch.scene import fixtures  # noqa: E402
 from piet_tpu_torch.scene.svg import make_tiger  # noqa: E402
@@ -151,3 +156,60 @@ def test_fine_xla_plain_matches_jax_and_oracle(name, make):
     gold[bail] = 0
     assert_images_match(img, jimg, err_msg=name)
     np.testing.assert_array_equal(img, gold, err_msg=name)
+
+
+SYNTH_WIDTHS = [16, 24, 128]
+
+
+def _synth(tile_w, groups):
+    cap = 256
+    counts, tags, args = synth_dense_ptcl(tile_w, tile_w=tile_w, tile_h=16,
+                                          cap=cap, groups=groups)
+    kw = dict(tile_h=16, tile_w=tile_w, cmd_capacity=cap)
+    return (counts, tags, args), kw
+
+
+def _u8(u32):
+    """Packed RGBA8 words as (height, width, 4) bytes."""
+    u32 = np.ascontiguousarray(np.asarray(u32))
+    return u32.view(np.uint8).reshape(*u32.shape, 4)
+
+
+@pytest.mark.parametrize("tile_w", SYNTH_WIDTHS)
+def test_dense_plain_group_map_matches_jax_on_synthetic_ptcl(tile_w):
+    """The group interpreter's plain version against JAX's jitted
+    fine_rasterize_xla on a synthetic PTCL: group commands first at slots
+    0, 31, 32, 127 and 128, streaks across the chunk boundary, a count
+    above the capacity (JAX reads the no-op in the last slot again) and a
+    zero count."""
+    args, kw = _synth(tile_w, groups=True)
+    assert (args[1] >= CMD_BEGIN_CLIP).any()
+    got = fine_rasterize_xla_plain(*(torch.from_numpy(a) for a in args),
+                                   **kw).numpy()
+    want = np.asarray(jax.jit(jax_fine_xla, static_argnames=(
+        "tile_h", "tile_w", "cmd_capacity"))(*args, **kw))
+    assert got.shape == want.shape == (32, 3 * tile_w)
+    assert_images_match(_u8(got), _u8(want), err_msg=f"tile_w {tile_w}")
+    # The empty tile stays white.
+    assert (got.view(np.uint32)[16:, 2 * tile_w:] == 0xFFFFFFFF).all()
+
+
+@pytest.mark.parametrize("tile_w", SYNTH_WIDTHS)
+def test_dense_plain_core_map_matches_jax_on_synthetic_ptcl(tile_w):
+    """_fine_kernel's tag map on a synthetic PTCL without group commands:
+    the plain version against JAX's Pallas kernel in interpret mode (counts
+    clamped to the capacity there: its chunk loop reads past the row
+    otherwise) and its jitted XLA interpreter; both plain instantiations
+    give the same pixels on these tags."""
+    args, kw = _synth(tile_w, groups=False)
+    counts, tags, words = args
+    t_args = tuple(torch.from_numpy(a) for a in args)
+    got = fine_rasterize_plain(*t_args, **kw).numpy()
+    want = np.asarray(jax_fine(np.minimum(counts, kw["cmd_capacity"]), tags,
+                               words, **kw, interpret=True))
+    assert_images_match(_u8(got), _u8(want), err_msg=f"tile_w {tile_w}")
+    want_xla = np.asarray(jax.jit(jax_fine_xla, static_argnames=(
+        "tile_h", "tile_w", "cmd_capacity"))(*args, **kw))
+    assert_images_match(_u8(got), _u8(want_xla), err_msg=f"tile_w {tile_w}")
+    assert torch.equal(torch.from_numpy(got),
+                       fine_rasterize_xla_plain(*t_args, **kw))

@@ -23,6 +23,7 @@ from piet_tpu_torch.config import RenderConfig
 from piet_tpu_torch.ops import (candfuse, coarse, expand, fine, fine_xla,
                                 gatherm, hitfuse, keyed, sort)
 from piet_tpu_torch.raster.cpu_fine import cpu_render_scene
+from piet_tpu_torch.raster.synth_ptcl import synth_dense_ptcl
 from piet_tpu_torch.renderer.capacity import fit_capacities
 from piet_tpu_torch.renderer.renderer import (Renderer, _solid_to_present_u32,
                                               fetch_scene, prepare_scene,
@@ -142,6 +143,51 @@ def test_cuda_kernels_equal_plain_versions(cuda_inputs):
               tiles_x=cfg.tiles_x)
     assert torch.equal(fine.fine_rasterize_entries(*args, **kw),
                        fine.fine_rasterize_entries_plain(*args, **kw))
+
+
+def _affine_tiger_hit_taps():
+    """Kernel B's inputs on an affine-spun tiger frame, segments derived on
+    the card (seg_pre=None)."""
+    scene = make_tiger(scale=1.0)
+    cfg = fit_capacities(scene, RenderConfig(width=512, height=512,
+                                             tile_height=16, tile_width=128),
+                         bucket=True)
+    cfg = dataclasses.replace(cfg, max_hits=8 * cfg.max_hits,
+                              max_candidates=8 * cfg.max_candidates)
+    render_t = affine.make_affine_render_fn(
+        cfg, scene, lambda t: affine.rotation_about(256.0, 256.0, t, 0.9))
+    taps = {}
+    coarse.coarse_rasterize(
+        render_t.scene_at(0.5), tiles_x=cfg.tiles_x, tiles_y=cfg.tiles_y,
+        tile_w=cfg.tile_width, tile_h=cfg.tile_height,
+        max_segments=cfg.max_segments, max_hits=cfg.max_hits,
+        max_candidates=cfg.max_candidates, taps=taps)
+    return taps["hitfuse"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["total 0", "total == cap", "stride 0",
+                                  "affine tiger"])
+def test_cuda_hitfuse_edge_cases(case, cuda_inputs):
+    """Kernel B bitwise against its plain version: no live record (every
+    block writes the dead pattern), every record live, the unpacked
+    sort's key mode, and segments derived on the card."""
+    _, taps, _ = cuda_inputs
+    (rows, counts, excl, total), kw = taps["hitfuse"]
+    if case == "total 0":
+        total = torch.zeros_like(total)
+    elif case == "total == cap":
+        kw = dict(kw, cap=int(total.reshape(-1)[0]))
+    elif case == "stride 0":
+        kw = dict(kw, stride=0)
+    else:
+        (rows, counts, excl, total), kw = _affine_tiger_hit_taps()
+    assert int(total.reshape(-1)[0]) <= kw["cap"]
+    kernels.reset_launches()
+    got = hitfuse.hit_records_fused(rows, counts, excl, total, **kw)
+    assert kernels.LAUNCHES["hitfuse"] == 1
+    assert _same_bits(got, hitfuse.hit_records_fused_plain(
+        rows, counts, excl, total, **kw))
 
 
 def _sort_case(n, n_keys, bound, seed, val_kind):
@@ -479,3 +525,49 @@ def test_cuda_dense_render_equals_oracle(name, make, size, th):
     assert r.last_stats["overflow_cmds"] == 0
     np.testing.assert_array_equal(got, cpu_render_scene(scene, r.config),
                                   err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,make,size,th", DENSE_SCENES,
+                         ids=[s[0] for s in DENSE_SCENES])
+def test_cuda_fine_dense_16x16_equals_plain(name, make, size, th):
+    """Both instantiations at 16x16 tiles (4 pixels a thread)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    scene = make()
+    cfg = fit_capacities(scene, RenderConfig(width=size, height=size,
+                                             tile_height=16, tile_width=16))
+    out = coarse.coarse_rasterize(
+        prepare_scene(scene, cfg, "cuda"), output="dense",
+        cmd_capacity=cfg.cmd_capacity, tiles_x=cfg.tiles_x,
+        tiles_y=cfg.tiles_y, tile_w=16, tile_h=16,
+        max_segments=cfg.max_segments, max_hits=cfg.max_hits,
+        max_candidates=cfg.max_candidates)
+    args = (out.counts.reshape(cfg.tiles_y, cfg.tiles_x), out.tags, out.args)
+    kw = dict(tile_h=16, tile_w=16, cmd_capacity=cfg.cmd_capacity)
+    assert torch.equal(fine.fine_rasterize(*args, **kw),
+                       fine.fine_rasterize_plain(*args, **kw))
+    assert torch.equal(fine_xla.fine_rasterize_xla(*args, **kw),
+                       fine_xla.fine_rasterize_xla_plain(*args, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", [True, False], ids=["groups", "core"])
+@pytest.mark.parametrize("tile_w", [16, 24, 128])
+def test_cuda_fine_dense_synthetic_equals_plain(tile_w, groups):
+    """Both instantiations on the synthetic PTCLs (raster/synth_ptcl.py):
+    group commands first at slots 0, 31, 32, 127 and 128, streaks across
+    the chunk boundary, a count above the capacity and a zero count; a
+    ragged edge at tile_w 24 (4 pixels a thread)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cap = 256
+    args = tuple(torch.from_numpy(a).cuda() for a in synth_dense_ptcl(
+        tile_w, tile_w=tile_w, tile_h=16, cap=cap, groups=groups))
+    kw = dict(tile_h=16, tile_w=tile_w, cmd_capacity=cap)
+    kernels.reset_launches()
+    assert torch.equal(fine.fine_rasterize(*args, **kw),
+                       fine.fine_rasterize_plain(*args, **kw))
+    assert torch.equal(fine_xla.fine_rasterize_xla(*args, **kw),
+                       fine_xla.fine_rasterize_xla_plain(*args, **kw))
+    assert kernels.LAUNCHES["fine_dense"] == 2
