@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time the port's fine and hit-record kernels of two source trees on one
-CUDA card, in turns, and print each tree's compiler statistics.
+"""Time the port's fine, hit-record and sort kernels of two source trees
+on one CUDA card, in turns, and print each tree's compiler statistics.
 
     python3 ab_kernels.py ROOT_A ROOT_B
     python3 ab_kernels.py --ptxas ROOT
+    python3 ab_kernels.py --sort-variants ROOT
 
 ROOT_A and ROOT_B are checkouts of this repository (e.g. a parent commit
 unpacked with ``git archive`` into a gitignored directory, and the working
@@ -19,16 +20,30 @@ times, on the static 1664^2 tiger (32x128 tiles) with CUDA events around
   fine         kernel D on the frame's entry stream, and at 16x16 tiles;
 
 and counts the device ops of one static frame on each route
-(torch.profiler).  Then ``nvcc -Xptxas -v`` on each tree's fine_dense.cu,
-hitfuse.cu and fine.cu, with the build's flags: registers, spill bytes
-and shared memory per kernel.  Every line names the card and its power
-limit.  Needs one card; exits non-zero without one.
+(torch.profiler).  Then kernel C's device-memory route (above 196,608
+pairs): the sort of beziers_10k's keys at 1024^2 (261,504 pairs with the
+fitted capacities, 368,640 bucketed) and of 2^20 random pairs (seed 4),
+each beside torch.sort on the same first key, and the beziers_10k frame (bucketed) on both routes: latency (median of
+20 frames, CUDA events around each call), device busy per frame and
+device ops per frame (torch.profiler over 10 frames).  Then ``nvcc
+-Xptxas -v`` on each tree's fine_dense.cu, hitfuse.cu, fine.cu and
+sort.cu, with the build's flags: registers, spill bytes and shared memory
+per kernel.  ``--sort-variants`` builds design variants of ROOT's
+csrc/sort.cu (each a text substitution that must match the source once;
+see SORT_VARIANTS), loads each library with ctypes and times its
+device-memory route in turns on the same cases -- beziers_10k's keys at
+both sizes, 2^20 random pairs with one and two keys -- beside torch.sort,
+each bitwise against the plain sort (one variant skips the look-back and
+is timed only), then each kernel's device time per call
+(torch.profiler).  Every line names the card and its power limit.  Needs
+one card; exits non-zero without one.
 """
 
 import argparse
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 
@@ -43,7 +58,8 @@ def worker(root: str) -> None:
 
     from piet_tpu_torch import kernels
     from piet_tpu_torch.host import make_tiger
-    from piet_tpu_torch.ops import coarse, fine, fine_xla, hitfuse
+    from piet_tpu_torch.ops import coarse, fine, fine_xla, hitfuse, sort
+    from piet_tpu_torch.scene import fixtures
     from piet_tpu_torch.renderer.renderer import (Renderer,
                                                   _solid_to_present_u32)
     assert kernels.__file__.startswith(os.path.abspath(root)), kernels.__file__
@@ -72,6 +88,29 @@ def worker(root: str) -> None:
             render_one()
             torch.cuda.synchronize()
         return sum(e.device_type == DeviceType.CUDA for e in prof.events())
+
+    def frame_profile(render_one, frames=10):
+        """(median ms of 20 frames, CUDA events around each call; device
+        busy ms per frame and device ops per frame over ``frames``)."""
+        for _ in range(3):
+            render_one()
+        times = []
+        for _ in range(20):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            render_one()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(frames):
+                render_one()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3 / frames
+        return statistics.median(times), busy, len(kern) / frames
 
     scene = make_tiger()
     out = {}
@@ -109,6 +148,42 @@ def worker(root: str) -> None:
             rr = Renderer(cfg, dev, fine_impl=impl)
             out[f"device ops, {impl} frame"] = device_ops(
                 lambda: rr.render_device(d))
+    bez = fixtures.get_scene("beziers_10k")
+    for bucket, tag in ((False, "261504 beziers fitted"),
+                        (True, "368640 beziers bucketed")):
+        r = Renderer.for_scene(bez, 1024, 1024, device=dev, bucket=bucket)
+        cfg = r.config
+        d = r.prepare(bez)
+        taps = {}
+        coarse.coarse_rasterize(
+            d, taps=taps, tiles_x=cfg.tiles_x, tiles_y=cfg.tiles_y,
+            tile_w=cfg.tile_width, tile_h=cfg.tile_height,
+            max_segments=cfg.max_segments, max_hits=cfg.max_hits,
+            max_candidates=cfg.max_candidates)
+        keys, val, bounds = taps["sort"]
+        assert val.shape[0] == int(tag.split()[0]), val.shape
+        out[f"sort {tag}"] = time_ms(
+            lambda: sort.stable_sort_multi(keys, val, bounds))
+        out[f"torch.sort {tag}"] = time_ms(
+            lambda: torch.sort(keys[0], stable=True))
+        if not bucket:
+            continue
+        for impl in ("entries", "dense"):
+            rr = Renderer(cfg, dev, fine_impl=impl)
+            lat, busy, ops = frame_profile(lambda: rr.render_device(d))
+            out[f"beziers frame {impl}, latency ms"] = lat
+            out[f"beziers frame {impl}, device busy ms"] = busy
+            out[f"beziers frame {impl}, device ops"] = ops
+    gen = torch.Generator(device=dev).manual_seed(4)
+    n = 1 << 20
+    key = torch.randint(0, 2 ** 24, (n,), generator=gen,
+                        device=dev).to(torch.float32)
+    key[torch.rand(n, generator=gen, device=dev) < 0.2] = float("inf")
+    val = torch.arange(n, dtype=torch.int32, device=dev)
+    out["sort 1048576 random"] = time_ms(
+        lambda: sort.stable_sort_multi((key,), val))
+    out["torch.sort 1048576 random"] = time_ms(
+        lambda: torch.sort(key, stable=True))
     print("AB " + json.dumps(out), flush=True)
 
 
@@ -117,7 +192,7 @@ def ptxas(root: str) -> str:
     from piet_tpu_torch import kernels
     lines = []
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    for name in ("fine_dense", "hitfuse", "fine"):
+    for name in ("fine_dense", "hitfuse", "fine", "sort"):
         src = kernels.CSRC / f"{name}.cu"
         obj = kernels.BUILD_DIR / f"ptxas.{name}.o"
         res = subprocess.run(
@@ -128,6 +203,188 @@ def ptxas(root: str) -> str:
             if re.search(r"Compiling entry|registers|spill", ln):
                 lines.append(f"{name}: {ln.strip()}")
     return "\n".join(lines)
+
+
+#: Design variants of csrc/sort.cu's device-memory route: name ->
+#: (text, replacement) pairs.
+_UPSWEEP_ATOMIC = """      if (wbase + 32 * j >= n) continue;
+      const unsigned k0 = key_int(f0[j], s.bound[0]);"""
+_UPSWEEP_ADD = """        atomicAdd(&h[p * BINS + (((s.sel[p] ? k1[j] : k0) >> s.shift[p]) &
+                                 ((1u << s.bits[p]) - 1u))],
+                  1u);"""
+SORT_VARIANTS = {
+    "as built": [],
+    "upsweep match-aggregated": [
+        (_UPSWEEP_ATOMIC, """      const bool ok = wbase + 32 * j < n;
+      const unsigned k0 = key_int(f0[j], s.bound[0]);"""),
+        (_UPSWEEP_ADD, """        const unsigned d =
+            ok ? ((s.sel[p] ? k1[j] : k0) >> s.shift[p]) &
+                     ((1u << s.bits[p]) - 1u)
+               : (unsigned)BINS;
+        const unsigned peers = __match_any_sync(FULL, d);
+        if (ok && lane == __ffs(peers) - 1)
+          atomicAdd(&h[p * BINS + d], (unsigned)__popc(peers));""")],
+    "gather val (no carry)": [("    a.carry = !s.two;", "    a.carry = 0;")],
+    "ballot match": [("    const unsigned peers = __match_any_sync(FULL, d);\n"
+                      "    const unsigned before", """    unsigned peers = FULL;
+#pragma unroll
+    for (int b = 0; b < 9; ++b) {
+      const unsigned bit = (d >> b) & 1u;
+      const unsigned ones = __ballot_sync(FULL, bit);
+      peers &= bit ? ones : ~ones;
+    }
+    const unsigned before""")],
+    "look-back 1 word": [("constexpr int LOOK_W = 8;",
+                          "constexpr int LOOK_W = 1;")],
+    "tile 1024": [("constexpr int P_ITEMS = 7;", "constexpr int P_ITEMS = 4;")],
+    "tile 2816": [("constexpr int P_ITEMS = 7;",
+                   "constexpr int P_ITEMS = 11;")],
+    "6 blocks an SM": [("__global__ void __launch_bounds__(P_THREADS)\n"
+                        "sort_pass(",
+                        "__global__ void __launch_bounds__(P_THREADS, 6)\n"
+                        "sort_pass(")],
+    "no dependent launch": [
+        ("    attr[0].val.programmaticStreamSerializationAllowed = 1;",
+         "    attr[0].val.programmaticStreamSerializationAllowed = 0;")],
+    "no look-back (wrong, timed only)": [
+        ("    if (part > 0) {\n      bool done",
+         "    if (false) {\n      bool done")],
+}
+
+
+def sort_variants(root: str) -> None:
+    sys.path.insert(0, root)
+    import ctypes
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from piet_tpu_torch import kernels
+    from piet_tpu_torch.ops import coarse, sort
+    from piet_tpu_torch.renderer.renderer import Renderer
+    from piet_tpu_torch.scene import fixtures
+    card = card_line()
+    src = (kernels.CSRC / "sort.cu").read_text()
+    out_dir = kernels.BUILD_DIR / "sort_variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cmds, tiles = {}, {}
+    for k, (name, subs) in enumerate(SORT_VARIANTS.items()):
+        text = src
+        for a, b in subs:
+            assert text.count(a) == 1, (name, a)
+            text = text.replace(a, b)
+        tiles[name] = 256 * int(re.search(r"constexpr int P_ITEMS = (\d+);",
+                                          text).group(1))
+        (out_dir / f"v{k}.cu").write_text(text)
+        cmds[name] = [kernels._nvcc()] + kernels.NVCC_FLAGS + [
+            "-shared", "-o", str(out_dir / f"v{k}.so"), str(out_dir / f"v{k}.cu")]
+    procs = {n: subprocess.Popen(c, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+             for n, c in cmds.items()}
+    libs = {}
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"variant {name}: nvcc failed\n{log}")
+        lib = ctypes.CDLL(cmds[name][-2])
+        lib.piet_sort.argtypes = kernels._SIGNATURES["piet_sort"]
+        lib.piet_sort.restype = ctypes.c_int
+        libs[name] = lib
+    dev = torch.device("cuda")
+
+    def run(name, keys, val, bounds):
+        n = val.shape[0]
+        plan = sort.sort_plan(n, bounds)._replace(chunk=tiles[name])
+        flat = [x for p in plan.passes for x in p]
+        scratch = torch.empty(sort.scratch_words(n, plan), dtype=torch.int32,
+                              device=dev)
+        ok = [torch.empty_like(k) for k in keys]
+        ov = torch.empty_like(val)
+        two = len(keys) == 2
+        rc = libs[name].piet_sort(
+            keys[0].data_ptr(), keys[1].data_ptr() if two else None,
+            val.data_ptr(), ok[0].data_ptr(),
+            ok[1].data_ptr() if two else None, ov.data_ptr(), n, bounds[0],
+            bounds[1] if two else 0, len(plan.passes),
+            (ctypes.c_int * len(flat))(*flat), 0, plan.chunk,
+            scratch.data_ptr(), kernels.stream())
+        assert rc == 0, (name, rc)
+        return ok, ov
+
+    def time_ms(fn, reps=20):
+        fn()
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    cases = {}
+    bez = fixtures.get_scene("beziers_10k")
+    for bucket in (False, True):
+        r = Renderer.for_scene(bez, 1024, 1024, device=dev, bucket=bucket)
+        c, taps = r.config, {}
+        coarse.coarse_rasterize(
+            r.prepare(bez), taps=taps, tiles_x=c.tiles_x, tiles_y=c.tiles_y,
+            tile_w=c.tile_width, tile_h=c.tile_height,
+            max_segments=c.max_segments, max_hits=c.max_hits,
+            max_candidates=c.max_candidates)
+        keys, val, bounds = taps["sort"]
+        cases[f"beziers_10k {val.shape[0]}"] = (keys, val, bounds)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    n = 1 << 20
+    for n_keys in (1, 2):
+        keys = []
+        for _ in range(n_keys):
+            k = torch.randint(0, 2 ** 24, (n,), generator=gen,
+                              device=dev).to(torch.float32)
+            k[torch.rand(n, generator=gen, device=dev) < 0.2] = float("inf")
+            keys.append(k)
+        cases[f"random 2^20, {n_keys} key(s)"] = (
+            tuple(keys), torch.randperm(n, generator=gen, device=dev).to(
+                torch.int32), (2 ** 24,) * n_keys)
+    for case, (keys, val, bounds) in cases.items():
+        wk, wv = sort.stable_sort_multi_plain(keys, val)
+        cols = [f"torch.sort {time_ms(lambda: torch.sort(keys[0], stable=True)):.4f}"]
+        times = {name: [] for name in libs}
+        for order in (list(libs), list(reversed(libs))):
+            for name in order:
+                times[name].append(time_ms(lambda: run(name, keys, val,
+                                                       bounds)))
+        for name in libs:
+            gk, gv = run(name, keys, val, bounds)
+            same = torch.equal(gv, wv) and all(
+                torch.equal(a.view(torch.int32), b.view(torch.int32))
+                for a, b in zip(gk, wk))
+            cols.append(f"{name} {times[name][0]:.4f}/{times[name][1]:.4f}"
+                        f"{'' if same else ' (differs from plain)'}")
+        print(f"sort variants, {case} [{card}]: " + " | ".join(cols),
+              flush=True)
+        for name in libs:
+            run(name, keys, val, bounds)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    run(name, keys, val, bounds)
+                torch.cuda.synchronize()
+            by = {}
+            for e in prof.events():
+                if e.device_type == DeviceType.CUDA:
+                    m = re.search(r"sort_\w+|[Mm]emset", e.name)
+                    key = m.group(0) if m else e.name[:30]
+                    cnt, us = by.get(key, (0, 0.0))
+                    by[key] = (cnt + 1, us + e.time_range.elapsed_us())
+            print(f"  kernels, {case}, {name}: " + ", ".join(
+                f"{k} {c / 10:.0f} x {us / c:.2f} us" for k, (c, us)
+                in by.items()), flush=True)
 
 
 def card_line() -> str:
@@ -142,12 +399,20 @@ def main() -> int:
     ap.add_argument("roots", nargs="*")
     ap.add_argument("--worker")
     ap.add_argument("--ptxas")
+    ap.add_argument("--sort-variants")
     a = ap.parse_args()
     if a.worker:
         worker(a.worker)
         return 0
     if a.ptxas:
         print(ptxas(a.ptxas), flush=True)
+        return 0
+    if a.sort_variants:
+        import torch
+        if not torch.cuda.is_available():
+            print("ab_kernels: needs a CUDA card", file=sys.stderr)
+            return 1
+        sort_variants(a.sort_variants)
         return 0
     import torch
     if not torch.cuda.is_available() or len(a.roots) != 2:

@@ -14,7 +14,10 @@ and exits non-zero:
      bitwise (tolerance 0): candfuse and hitfuse on the static 1664^2
      tiger's own inputs; sort on the tiger's keys, on the two keys of the
      unpacked configuration (below), on the tiger's keys with a val that
-     is not increasing, and on 2^20 pairs (the device-memory route); fine
+     is not increasing, on beziers_10k's keys at 1024^2 (261,504 pairs
+     fitted, 368,640 bucketed: the device-memory route), and on random
+     keys at 196,609, 261,504, 368,640 and 2^20 pairs, one and two keys
+     (and with -0.0 key words); fine
      (kernel D) on the tiger's entries (no group command: the stackless
      path), on the clip, gradient and multi-subpath fixtures' at 1024^2
      (the stack path) and on the tiger's at 16x16 tiles; expand, keyed and
@@ -41,6 +44,10 @@ and exits non-zero:
      tiles with room for 2,048 items, whose packed sort key would reach
      2^24 -- on both routes, bitwise against the oracle (the two-key
      sort);
+  4d. the BASELINE scenes circles_rects_1k, beziers_10k and glyph_page_5k
+     at 1024^2 (Renderer.for_scene, bucketed) on both routes, bitwise
+     against one oracle image each; beziers_10k's sort goes through the
+     device-memory route (its launches are the sort's second path);
   5. the device-animation paths, 2 frames each: the tiger under the
      affine spin/zoom at 1664^2 (make_affine_render_fn) and the animated
      fixture at 1024^2 (make_animated_render_fn).  Each frame must equal
@@ -52,11 +59,15 @@ and exits non-zero:
      torch.profiler trace (device-busy share and top device ops), and each
      kernel beside its plain version, its bound and, where one PyTorch call
      computes the same function, that call; then kernel C's device-memory
-     route on 2^20 pairs beside torch.sort, and both fine_dense
-     instantiations beside the device ops of a dense frame.
+     route on beziers_10k's keys (both sizes) and on 2^20 pairs beside
+     its plain version, torch.sort and its bound, the three BASELINE
+     frames on both routes, and both fine_dense instantiations beside the
+     device ops of a dense frame.
 
 The line before the last is the kernel table as JSON, each kernel with
-the path whose run gave its launch count; the last line is {"ok": true,
+the path whose run gave its launch count (and, under "paths", every path
+read: sort's second is the beziers_10k frame), the sort with its
+device-memory route's times; the last line is {"ok": true,
 "device": {...}}.  Exits non-zero without a result when no CUDA device is
 present.
 """
@@ -443,23 +454,50 @@ def main() -> int:
     # Kernel B on the static tiger's inputs, the unpacked configuration's
     # (stride 0) and the affine tiger's (segments derived on the device).
     hit_cases = [taps["hitfuse"], utaps["hitfuse"], atap["hitfuse"]]
+    # beziers_10k at 1024^2: its coarse pass sorts E = 261,504 records
+    # with the fitted capacities and 368,640 with for_scene's buckets.
+    bez = fixtures.get_scene("beziers_10k")
+    bez_taps = {}
+    for bucket in (False, True):
+        br = Renderer.for_scene(bez, 1024, 1024, device=dev, bucket=bucket)
+        t = {}
+        coarse.coarse_rasterize(br.prepare(bez), taps=t,
+                                **coarse_kw(br.config))
+        bez_taps[bucket] = t["sort"]
     gen = torch.Generator(device=dev).manual_seed(4)
-    big_n = 1 << 20
-    big_key = torch.randint(0, 2 ** 24, (big_n,), generator=gen,
-                            device=dev).to(torch.float32)
-    big_key[torch.rand(big_n, generator=gen, device=dev) < 0.2] = math.inf
+
+    def random_case(n, n_keys):
+        keys = []
+        for _ in range(n_keys):
+            k = torch.randint(0, 2 ** 24, (n,), generator=gen,
+                              device=dev).to(torch.float32)
+            k[torch.rand(n, generator=gen, device=dev) < 0.2] = math.inf
+            keys.append(k)
+        val = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+        return tuple(keys), val, None
+
     sort_cases = {
         "tiger": (sort_keys, sort_val, sort_bounds),
         "unpacked, two keys": utaps["sort"],
         "tiger, val reversed": (sort_keys, torch.flip(sort_val, [0]),
                                 sort_bounds),
-        "2^20 pairs": ((big_key,), torch.arange(big_n, dtype=torch.int32,
-                                                device=dev), None)}
+        "beziers_10k fitted": bez_taps[False],
+        "beziers_10k bucketed": bez_taps[True]}
+    for n, n_keys in itertools.product((196_609, 261_504, 368_640, 1 << 20),
+                                       (1, 2)):
+        sort_cases[f"random {n} pairs, {n_keys} key(s)"] = random_case(
+            n, n_keys)
+    # -0.0 key words: the device-memory route gathers the outputs by index
+    # instead of moving val with the key.
+    (k,), v, _ = random_case(261_504, 1)
+    k[::7] = -0.0
+    sort_cases["random 261504 pairs, -0.0 keys"] = ((k,), v, None)
     for name, (k, v, b) in sort_cases.items():
         plan = sort.sort_plan(v.shape[0], b or (sort.KEY_LIMIT,) * len(k))
         route = (f"one launch, cluster of {plan.cluster} blocks of "
                  f"{plan.chunk} pairs" if plan.cluster else
-                 f"device-memory route, {3 * len(plan.passes)} launches")
+                 f"device-memory route, {1 + len(plan.passes)} launches "
+                 f"in tiles of {plan.chunk} pairs")
         print(f"sort case {name}: {v.shape[0]} pairs, {len(k)} key(s), "
               f"bounds {b}, {len(plan.passes)} digit passes {plan.passes}; "
               f"{route}", flush=True)
@@ -525,7 +563,7 @@ def main() -> int:
                                                                 **bkw),),
             library=None,
             bytes=hit_bytes),
-        # Compared on the four cases; timed on the tiger's keys.
+        # Compared on every case; timed on the tiger's keys.
         "sort": dict(
             route="cuda", source="piet_tpu_torch/csrc/sort.cu",
             replaces="piet_tpu/ops/sort.py:111",
@@ -738,6 +776,40 @@ def main() -> int:
         assert n_bad == 0, f"unpacked {impl} image differs from the oracle"
         assert launches["sort"] == 1, launches
 
+    # ---- 4d. the BASELINE scenes at 1024^2 -----------------------------
+    baseline = {}
+    for name, fixture in (("circles_rects_1k", "circles_rects"),
+                          ("beziers_10k", "beziers_10k"),
+                          ("glyph_page_5k", "glyph_page")):
+        sc = bez if fixture == "beziers_10k" else fixtures.get_scene(fixture)
+        renderers = {impl: Renderer.for_scene(sc, 1024, 1024, device=dev,
+                                              fine_impl=impl)
+                     for impl in ("entries", "dense")}
+        c = renderers["entries"].config
+        t0 = time.perf_counter()
+        gold = cpu_render_scene(sc, c)
+        t_gold = time.perf_counter() - t0
+        for impl, r in renderers.items():
+            kernels.reset_launches()
+            img = r.render(sc)
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+            n_bad = int((img != gold).any(-1).sum())
+            n_pairs = c.max_hits + c.max_candidates
+            print(f"render {name} 1024x1024, {impl} route: {n_bad} pixels "
+                  f"differ from the numpy oracle (oracle {t_gold:.1f} s); "
+                  f"items {sc.n_items} points {sc.n_points}; sort of "
+                  f"{n_pairs} pairs; launches {launches}", flush=True)
+            assert n_bad == 0, f"{name} {impl} image differs from the oracle"
+            assert launches["sort"] == 1 and launches[
+                "fine" if impl == "entries" else "fine_dense"] == 1, launches
+            baseline[name, impl] = (r, sc, launches)
+        if name == "beziers_10k":
+            k, v, b = bez_taps[True]
+            assert v.shape[0] == n_pairs
+            plan = sort.sort_plan(n_pairs, b)
+            assert plan.cluster == 0, plan
+
     # ---- 5. the device-animation paths ---------------------------------
     anim_launches = {}
     for tag, c, render_t, ni, npts in (
@@ -818,6 +890,19 @@ def main() -> int:
         if impl == "dense":
             dense_ops[w, h] = ops
 
+    for (name, impl), (r, sc, _) in baseline.items():
+        d = r.prepare(sc)
+        frame = frame_ms(lambda: r.render_device(d), reps=20)
+        frame_dev = time_ms(lambda: r.render_device(d), reps=5,
+                            spin=8 * SPIN_CYCLES)
+        wall = wall_ms(lambda: r.render_device(d))
+        tag = f"{name} 1024x1024 {impl}"
+        print(f"timing {tag} [{card}]: {frame:.3f} ms/frame (median of 20, "
+              f"CUDA events per frame); pipelined wall {wall:.3f} ms/frame; "
+              f"device {frame_dev:.3f} ms/frame; {sc.n_items} items",
+              flush=True)
+        profile_frames(lambda: r.render_device(d), card, tag)
+
     for tag, render_t in (("affine tiger 1664x1664", aff_render),
                           ("animated 1024x1024", anim_render)):
         t = T_FRAMES[1]
@@ -848,15 +933,32 @@ def main() -> int:
               f"{k['bytes']} B, {k.get('ops', 0)} f32 ops; mean of "
               f"back-to-back calls, all of one frame's calls)", flush=True)
 
-    # The device-memory route's case against torch.sort on the same keys.
-    big_keys, big_val, _ = sort_cases["2^20 pairs"]
-    t_big = time_ms(lambda: sort.stable_sort_multi(big_keys, big_val),
-                    reps=20, warm=2)
-    t_big_lib = time_ms(lambda: torch.sort(big_keys[0], stable=True),
-                        reps=20, warm=2)
-    print(f"timing kernel sort, 2^20 pairs, 25-bit keys [{card}]: "
-          f"{t_big:.4f} ms device (device-memory route), torch.sort "
-          f"{t_big_lib:.4f} ms", flush=True)
+    # The device-memory route on beziers_10k's keys and on 2^20 pairs,
+    # beside its plain version, torch.sort on the first key and its bound
+    # (each key and val word read once and written once).
+    route2 = []
+    for name in ("beziers_10k fitted", "beziers_10k bucketed",
+                 "random 1048576 pairs, 1 key(s)"):
+        k, v, b = sort_cases[name]
+        n = v.shape[0]
+        plan = sort.sort_plan(n, b or (sort.KEY_LIMIT,) * len(k))
+        assert plan.cluster == 0, plan
+        t_r2 = time_ms(lambda: sort.stable_sort_multi(k, v, b), reps=20,
+                       warm=2)
+        t_plain = time_ms(lambda: sort.stable_sort_multi_plain(k, v),
+                          reps=20, warm=1)
+        t_lib = time_ms(lambda: torch.sort(k[0], stable=True), reps=20,
+                        warm=2)
+        t_bound, by = bound(2 * n * 4 * (len(k) + 1))
+        route2.append(dict(case=name, pairs=n, passes=len(plan.passes),
+                           launches=1 + len(plan.passes), ms=t_r2,
+                           plain_ms=t_plain, library_ms=t_lib,
+                           bound_ms=t_bound, bound_by=by))
+        print(f"timing kernel sort, device-memory route, {name}: {n} "
+              f"pairs, {len(plan.passes)} passes, {1 + len(plan.passes)} "
+              f"launches [{card}]: {t_r2:.4f} ms device, plain version "
+              f"{t_plain:.4f} ms, torch.sort {t_lib:.4f} ms, bound "
+              f"{t_bound:.5f} ms ({by})", flush=True)
     # Both instantiations of the dense kernel on the tiger's PTCL (the
     # group one serves the dense frame; fine_rasterize is the TPU kernel's
     # own tag map), beside the device ops of a dense frame (phase 6's
@@ -873,18 +975,27 @@ def main() -> int:
     # Each kernel's launches on a path that runs it: the affine tiger's two
     # frames (entries route) for the seven, one dense static tiger frame
     # for fine_dense.
-    paths = {name: ("affine tiger 1664x1664, 2 frames, entries route",
-                    anim_launches["affine tiger 1664x1664"][name])
+    # The sort's second path: the beziers_10k frame, whose sort takes the
+    # device-memory route.
+    paths = {name: [("affine tiger 1664x1664, 2 frames, entries route",
+                     anim_launches["affine tiger 1664x1664"][name])]
              for name in table}
-    paths["fine_dense"] = ("static tiger 1664x1664, 1 frame, dense route",
-                           dense_launches[1664, 1664]["fine_dense"])
+    paths["fine_dense"] = [("static tiger 1664x1664, 1 frame, dense route",
+                            dense_launches[1664, 1664]["fine_dense"])]
+    paths["sort"].append((
+        "beziers_10k 1024x1024, 1 frame, entries route (device-memory "
+        "route)", baseline["beziers_10k", "entries"][2]["sort"]))
+    table["sort"]["device_memory_route"] = route2
     print(json.dumps({"kernels": [
         {"name": name, "route": k["route"], "source": k["source"],
-         "replaces": k["replaces"], "path": paths[name][0],
-         "launches": paths[name][1],
+         "replaces": k["replaces"], "path": paths[name][0][0],
+         "launches": paths[name][0][1],
+         "paths": [{"path": p, "launches": n} for p, n in paths[name]],
          "max_abs_err": k["max_abs_err"], "ms": k["ms"],
          "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-         "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
+         "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+         **({"device_memory_route": k["device_memory_route"]}
+            if "device_memory_route" in k else {})}
         for name, k in table.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,8 +12,11 @@ bound, so the result is the same for any ``val``.
 (least significant first: the last key's digits, then the first key's)
 and how the pairs are split over blocks.  Up to ``CLUSTER *
 CLUSTER_CHUNK`` pairs the whole sort is one launch on one thread-block
-cluster whose blocks hold the pairs in shared memory; above that it runs
-over device memory, three launches per pass.
+cluster whose blocks hold the pairs in shared memory.  Above that it runs
+over device memory in 1 + n_pass launches: one upsweep that builds every
+pass's digit histogram from the keys, then one launch per digit pass, in
+tiles of ``PASS_TILE`` pairs that find their digits' global starts by
+decoupled look-back (:func:`scratch_words` sizes its scratch).
 """
 
 from __future__ import annotations
@@ -29,8 +32,8 @@ from .. import kernels
 KEY_LIMIT = 2 ** 24
 #: Bits of one digit pass (256 bins).
 RADIX_BITS = 8
-#: Warps per block of either route; a block's pairs are split into one
-#: contiguous run per warp, ranked in element order.
+#: Warps per block of the cluster route; a block's pairs are split into
+#: one contiguous run per warp, ranked in element order.
 WARPS = 32
 #: Pairs held by one block of the cluster (its shared memory holds two
 #: buffers of 8-byte pairs beside the per-warp digit counts).
@@ -39,8 +42,15 @@ CLUSTER_CHUNK = 12288
 #: pairs each (on an H100, 16 blocks sort the 1664^2 tiger's keys faster
 #: than 8: PERF.md).
 CLUSTER = 16
-#: Pairs per block on the device-memory route.
-GLOBAL_TILE = 8192
+#: The device-memory route's tile: PASS_THREADS threads of PASS_ITEMS
+#: pairs (warp w ranks the tile's pairs [32 w PASS_ITEMS, 32 (w + 1)
+#: PASS_ITEMS) in element order).  1,792 pairs a tile give beziers_10k's
+#: 261,504 records 146 tiles, more than the H100's 132 SMs.
+PASS_THREADS = 256
+PASS_ITEMS = 7
+PASS_TILE = PASS_THREADS * PASS_ITEMS
+#: The device-memory route's control words ahead of its histograms.
+PASS_CTL_WORDS = 16
 
 
 class SortPlan(NamedTuple):
@@ -48,8 +58,9 @@ class SortPlan(NamedTuple):
 
     ``passes``: (key, shift, bits) of each digit pass, first pass first.
     ``cluster``: blocks of the cluster, or 0 for the device-memory route.
-    ``chunk``: pairs per block (block b holds positions
-    [b * chunk, (b + 1) * chunk))."""
+    ``chunk``: pairs per cluster block (block b holds positions
+    [b * chunk, (b + 1) * chunk)), or per tile of the device-memory
+    route."""
     passes: Tuple[Tuple[int, int, int], ...]
     cluster: int
     chunk: int
@@ -79,8 +90,18 @@ def sort_plan(n: int, bounds: Sequence[int]) -> SortPlan:
     that."""
     passes = radix_passes(bounds)
     if n > CLUSTER * CLUSTER_CHUNK:
-        return SortPlan(passes, 0, GLOBAL_TILE)
+        return SortPlan(passes, 0, PASS_TILE)
     return SortPlan(passes, CLUSTER, max(-(-n // CLUSTER), 1))
+
+
+def scratch_words(n: int, plan: SortPlan) -> int:
+    """32-bit words of the device-memory route's scratch: two buffers of n
+    8-byte pairs, the control words, a 256-bin histogram per pass and a
+    look-back word per (pass, tile, bin)."""
+    bins = 1 << RADIX_BITS
+    n_pass = len(plan.passes)
+    return (4 * n + PASS_CTL_WORDS
+            + n_pass * bins * (1 + -(-n // plan.chunk)))
 
 
 def stable_sort_multi_plain(keys, val: torch.Tensor):
@@ -121,13 +142,12 @@ def stable_sort_multi(keys, val: torch.Tensor,
     plan = sort_plan(n, bounds)
     flat = [v for p in plan.passes for v in p]
     sched = (ctypes.c_int * len(flat))(*flat)
-    # The device-memory route ping-pongs (key, index) pairs through
-    # scratch: two buffers of n pairs, then the digit-major counts.
+    # The device-memory route ping-pongs (key value, index or val) pairs
+    # through scratch; the kernel zeroes its counters and look-back words.
     scratch = None
     if plan.cluster == 0:
-        n_blocks = -(-n // plan.chunk)
-        scratch = torch.empty((4 * n + (1 << RADIX_BITS) * n_blocks,),
-                              dtype=torch.int32, device=val.device)
+        scratch = torch.empty((scratch_words(n, plan),), dtype=torch.int32,
+                              device=val.device)
     two = len(keys) == 2
     kernels.launch(
         "sort", "piet_sort", keys[0].data_ptr(),

@@ -211,10 +211,14 @@ def _sort_case(n, n_keys, bound, seed, val_kind):
     (1 << 20, 1, 2 ** 24),           # the device-memory route
     (196_609, 2, 2 ** 24),           # the same, one pair past the cluster
     (5, 1, 3),                       # fewer pairs than blocks
+    (261_504, 1, 5_177_856),         # beziers_10k at 1024^2, fitted
+    (368_640, 1, 7_340_544),         # the same, bucketed
+    (368_640, 2, 28_674),            # beziers-sized, two keys
 ])
 def test_cuda_sort_equals_plain(n, n_keys, bound):
     """The radix kernel against successive stable torch.sorts, bitwise, on
-    both routes: dead +inf records, a val that is not increasing."""
+    both routes: dead +inf records, a val that is not increasing.  The
+    device-memory route is one launch of the wrapper."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     keys, val = _sort_case(n, n_keys, bound, n + n_keys, "reversed"
@@ -225,6 +229,23 @@ def test_cuda_sort_equals_plain(n, n_keys, bound):
     assert kernels.LAUNCHES["sort"] == 1
     wk, wv = sort.stable_sort_multi_plain(keys, val)
     assert all(_same_bits(g, w) for g, w in zip(gk, wk))
+    assert torch.equal(gv, wv)
+
+
+@pytest.mark.cuda
+def test_cuda_sort_negative_zero_keys():
+    """A -0.0 key word is not the word its integer value gives back: the
+    device-memory route then gathers the outputs by index instead of
+    moving val with the key, and stays bitwise equal to the plain sort."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    keys, val = _sort_case(261_504, 1, 64, 5, "random")
+    key = torch.where(keys[0] == 0, -0.0, keys[0])
+    assert bool((key.view(torch.int32) == -2 ** 31).any())
+    assert sort.sort_plan(261_504, (64,)).cluster == 0
+    gk, gv = sort.stable_sort_multi((key,), val, (64,))
+    wk, wv = sort.stable_sort_multi_plain((key,), val)
+    assert _same_bits(gk[0], wk[0])
     assert torch.equal(gv, wv)
 
 
@@ -255,6 +276,27 @@ def test_cuda_fine_entries_equals_plain(name, make, size, th, tw):
               tiles_x=cfg.tiles_x)
     assert torch.equal(fine.fine_rasterize_entries(*args, **kw),
                        fine.fine_rasterize_entries_plain(*args, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fine_impl", ["entries", "dense"])
+def test_cuda_beziers_render_equals_oracle(fine_impl):
+    """beziers_10k at 1024^2 (E = 368,640 records, bucketed): the sort
+    takes the device-memory route; the frame bitwise against the oracle."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    scene = fixtures.get_scene("beziers_10k")
+    r = Renderer.for_scene(scene, 1024, 1024, device="cuda",
+                           fine_impl=fine_impl)
+    cfg = r.config
+    n = cfg.max_hits + cfg.max_candidates
+    bound = cfg.n_tiles * 2 * (cfg.max_items + 1)
+    assert n > sort.CLUSTER * sort.CLUSTER_CHUNK
+    assert sort.sort_plan(n, (bound,)).cluster == 0
+    kernels.reset_launches()
+    got = r.render(scene)
+    assert kernels.LAUNCHES["sort"] == 1
+    np.testing.assert_array_equal(got, cpu_render_scene(scene, cfg))
 
 
 @pytest.mark.cuda
