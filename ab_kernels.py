@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's fine, hit-record and sort kernels of two source trees
-on one CUDA card, in turns, and print each tree's compiler statistics.
+"""Time the port's fine, hit-record, sort, keyed and expand kernels of
+two source trees on one CUDA card, in turns, and print each tree's
+compiler statistics.
 
     python3 ab_kernels.py ROOT_A ROOT_B
     python3 ab_kernels.py --ptxas ROOT
@@ -20,15 +21,27 @@ times, on the static 1664^2 tiger (32x128 tiles) with CUDA events around
   fine         kernel D on the frame's entry stream, and at 16x16 tiles;
 
 and counts the device ops of one static frame on each route
-(torch.profiler).  Then kernel C's device-memory route (above 196,608
+(torch.profiler).  On the affine-spun tiger at 1664^2 (t = 23/60, the
+frame chip_smoke.py's engines are timed on; each tree's own
+``chip_smoke.affine_tiger``), the engines of the coarse pass:
+
+  keyed        all of a frame's keyed work as the tree's coarse pass
+               calls it (one call on kernel B's records where the tree
+               has ``record_keyed_sums``, else the glue and two
+               ``keyed_sum`` calls), and the two sums as two
+               ``keyed_sum`` calls without the glue;
+  expand       ``expand_rows`` on the frame's item rows;
+
+and the device ops of an affine-tiger and an animated-fixture frame.
+Then kernel C's device-memory route (above 196,608
 pairs): the sort of beziers_10k's keys at 1024^2 (261,504 pairs with the
 fitted capacities, 368,640 bucketed) and of 2^20 random pairs (seed 4),
 each beside torch.sort on the same first key, and the beziers_10k frame (bucketed) on both routes: latency (median of
 20 frames, CUDA events around each call), device busy per frame and
 device ops per frame (torch.profiler over 10 frames).  Then ``nvcc
--Xptxas -v`` on each tree's fine_dense.cu, hitfuse.cu, fine.cu and
-sort.cu, with the build's flags: registers, spill bytes and shared memory
-per kernel.  ``--sort-variants`` builds design variants of ROOT's
+-Xptxas -v`` on each tree's fine_dense.cu, hitfuse.cu, fine.cu, sort.cu,
+keyed.cu and expand.cu, with the build's flags: registers, spill bytes and
+shared memory per kernel.  ``--sort-variants`` builds design variants of ROOT's
 csrc/sort.cu (each a text substitution that must match the source once;
 see SORT_VARIANTS), loads each library with ctypes and times its
 device-memory route in turns on the same cases -- beziers_10k's keys at
@@ -148,6 +161,7 @@ def worker(root: str) -> None:
             rr = Renderer(cfg, dev, fine_impl=impl)
             out[f"device ops, {impl} frame"] = device_ops(
                 lambda: rr.render_device(d))
+    out.update(engines(root, scene, dev, time_ms, device_ops))
     bez = fixtures.get_scene("beziers_10k")
     for bucket, tag in ((False, "261504 beziers fitted"),
                         (True, "368640 beziers bucketed")):
@@ -187,12 +201,69 @@ def worker(root: str) -> None:
     print("AB " + json.dumps(out), flush=True)
 
 
+def engines(root, scene, dev, time_ms, device_ops) -> dict:
+    """keyed and expand on the affine tiger's frame at t = 23/60, and the
+    device ops of an affine-tiger and an animated-fixture frame."""
+    import torch
+
+    import chip_smoke
+    from piet_tpu_torch.ops import coarse, expand, hitfuse, keyed
+    assert chip_smoke.__file__.startswith(root), chip_smoke.__file__
+    i32 = torch.int32
+    t = 23.0 / 60.0
+    cfg, render_t, _, _ = chip_smoke.affine_tiger(scene, dev)
+    taps = {}
+    coarse.coarse_rasterize(render_t.scene_at(t), taps=taps,
+                            **chip_smoke.coarse_kw(cfg))
+    hargs, hkw = taps["hitfuse"]
+    rec = hitfuse.hit_records_fused(*hargs, **hkw)
+    fused = hitfuse.split_fused(rec)
+    n_hits, n_out = hargs[3], cfg.max_candidates
+
+    def glue_args():
+        """The two sums' inputs as the coarse pass built them before
+        they became one call."""
+        live = torch.arange(rec.shape[0], dtype=i32, device=dev) < n_hits
+        d_val = fused["d_val"]
+        dk = torch.where(live & (d_val != 0.0), fused["d_cand"].to(i32),
+                         n_out)
+        return [(fused["n_cmds"][:, None].contiguous(),
+                 fused["h_cand"].to(i32), n_out),
+                (d_val[:, None].contiguous(), dk, n_out)]
+
+    def glue_and_two_calls():
+        a, b = glue_args()
+        return (keyed.keyed_sum(*a)[:, 0].to(i32), keyed.keyed_sum(*b)[:, 0])
+
+    calls = glue_args()
+    out = {}
+    if hasattr(keyed, "record_keyed_sums"):
+        out["keyed, a frame's sums as the coarse pass calls them"] = time_ms(
+            lambda: keyed.record_keyed_sums(rec, n_hits, n_out))
+    else:
+        out["keyed, a frame's sums as the coarse pass calls them"] = time_ms(
+            glue_and_two_calls)
+    out["keyed, two keyed_sum calls, no glue"] = time_ms(
+        lambda: [keyed.keyed_sum(*a) for a in calls])
+    exp_args = taps["expand"]
+    out["expand, affine tiger item rows"] = time_ms(
+        lambda: expand.expand_rows(*exp_args))
+    out["device ops, expand_rows call"] = device_ops(
+        lambda: expand.expand_rows(*exp_args))
+    out["device ops, affine tiger frame"] = device_ops(lambda: render_t(t))
+    _, anim_t, _, _ = chip_smoke.animated_fixture(dev)
+    out["device ops, animated fixture frame"] = device_ops(
+        lambda: anim_t(t))
+    return out
+
+
 def ptxas(root: str) -> str:
     sys.path.insert(0, root)
     from piet_tpu_torch import kernels
     lines = []
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    for name in ("fine_dense", "hitfuse", "fine", "sort"):
+    for name in ("fine_dense", "hitfuse", "fine", "sort", "keyed",
+                 "expand"):
         src = kernels.CSRC / f"{name}.cu"
         obj = kernels.BUILD_DIR / f"ptxas.{name}.o"
         res = subprocess.run(

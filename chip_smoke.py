@@ -20,9 +20,11 @@ and exits non-zero:
      (and with -0.0 key words); fine
      (kernel D) on the tiger's entries (no group command: the stackless
      path), on the clip, gradient and multi-subpath fixtures' at 1024^2
-     (the stack path) and on the tiger's at 16x16 tiles; expand, keyed and
+     (the stack path) and on the tiger's at 16x16 tiles; expand and
      gatherm on the affine-animated tiger's (segments derived on the
-     device); fine_dense on the static tiger's dense PTCL in both
+     device), keyed on its hit records (both of the coarse pass's sums in
+     one call, read in place, and each sum through the one-stream
+     keyed_sum); fine_dense on the static tiger's dense PTCL in both
      instantiations (fine_rasterize and fine_rasterize_xla), in the group
      one on the three fixtures, in both on the tiger's at 16x16 tiles and
      on the synthetic PTCLs of raster/synth_ptcl.py (tile widths 16, 24,
@@ -33,8 +35,8 @@ and exits non-zero:
   4. the static path: Renderer.for_scene(tiger, 1664, 1664).render() and
      the same at 3840x2160, with the launch counters reset just before
      and read just after each; the images must equal the numpy oracle
-     bitwise, and every kernel of the path (all but expand and fine_dense)
-     must have run;
+     bitwise, every kernel of the path (all but expand and fine_dense)
+     must have run, and keyed once (both sums in one call);
   4b. the dense path (fine_impl="dense"): the same two tiger frames
      against the same oracle images, with fine_dense run, entries-fine
      not run and no PTCL overflow; the three group fixtures at 1024^2; one
@@ -56,7 +58,9 @@ and exits non-zero:
      entries route must have run;
   6. timing with CUDA events: ms/frame on every path (both routes of the
      static tiger), device ms with the launch overhead hidden, a
-     torch.profiler trace (device-busy share and top device ops), and each
+     torch.profiler trace (device-busy share and top device ops, and the
+     device ops per frame beside commit aea80da's, before the keyed sums
+     became one call and expand one op), and each
      kernel beside its plain version, its bound and, where one PyTorch call
      computes the same function, that call; then kernel C's device-memory
      route on beziers_10k's keys (both sizes) and on 2^20 pairs beside
@@ -111,6 +115,20 @@ FINE_OPS_PER_PIXEL_CMD = 10
 PERIOD, ZOOM, DT, FRAMES = 4.0, 0.15, 1.0 / 60.0, 24
 #: The two frames each animation path renders and checks.
 T_FRAMES = (0.0, 23.0 / 60.0)
+
+#: Device ops per frame at commit aea80da (torch.profiler, NVIDIA H100 80GB
+#: HBM3, 700.00 W), printed beside this run's: before the coarse pass's two
+#: keyed sums became one call and expand one device op.
+OPS_BEFORE = {
+    "entries 1664x1664": 442, "entries 3840x2160": 442,
+    "dense 1664x1664": 459, "dense 3840x2160": 459,
+    "circles_rects_1k 1024x1024 entries": 442,
+    "circles_rects_1k 1024x1024 dense": 459,
+    "beziers_10k 1024x1024 entries": 447, "beziers_10k 1024x1024 dense": 464,
+    "glyph_page_5k 1024x1024 entries": 442,
+    "glyph_page_5k 1024x1024 dense": 459,
+    "affine tiger 1664x1664": 1380, "animated 1024x1024": 1283,
+}
 
 
 def time_ms(fn, reps: int, warm: int = 1,
@@ -222,8 +240,10 @@ def profile_frames(render_one, card: str, tag: str, frames: int = 10,
         wall_us = (time.perf_counter() - t0) * 1e6
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in kern)
+    before = OPS_BEFORE.get(tag, "not measured")
     print(f"profile {tag} [{card}]: {len(kern) / frames:.0f} device ops "
-          f"per frame, device busy {busy_us / frames / 1e3:.3f} ms of "
+          f"per frame (aea80da: {before}), device busy "
+          f"{busy_us / frames / 1e3:.3f} ms of "
           f"{wall_us / frames / 1e3:.3f} ms/frame wall (busy share "
           f"{busy_us / wall_us:.3f}, profiler on)", flush=True)
     by_name = {}
@@ -406,8 +426,14 @@ def main() -> int:
     fkw = dict(tile_h=cfg.tile_height, tile_w=cfg.tile_width,
                tiles_x=cfg.tiles_x)
     exp_args = atap["expand"]
-    keyed_calls = atap["keyed"]
+    keyed_args = atap["keyed"]
     gather_calls = atap["gatherm"]
+    # The same two sums as one-stream keyed_sum calls (and the library's
+    # index_add_): each sum's value column, and its keys with the dropped
+    # ones (out of range; past the live count for the deltas) at n_out.
+    k_rec, k_live, k_out = keyed_args
+    k_dval = k_rec[:, hitfuse.K_DVAL]
+    keyed_streams = keyed.record_streams(*keyed_args)
     # The dense PTCLs: the static tiger's, and the group fixtures' at
     # 1024^2 (clips and layers, gradients, multi-subpath winding carries).
     dense_in = [dense_inputs(staged, cfg)]
@@ -507,7 +533,7 @@ def main() -> int:
     ex_rows, ex_counts, ex_cap, _ = exp_args
     ex_n = int(ex_counts.sum())
     keyed_lib_keys = [torch.where((a[1] >= 0) & (a[1] < a[2]), a[1],
-                                  a[2]).long() for a in keyed_calls]
+                                  a[2]).long() for a in keyed_streams]
     gather_lib_idx = [[i.long() for i in idxs] for _, idxs in gather_calls]
     n_ent = sort_val.shape[0]
     fine_cmds = int(entries.counts.sum())
@@ -535,9 +561,14 @@ def main() -> int:
     ex_live = int((ex_counts > 0).sum())
     exp_bytes = (row_bytes(ex_live, ex_rows, ex_counts, exp_args[3])
                  + ex_cap * ex_rows.shape[1] * 4)
-    keyed_bytes = sum(nbytes(a[1]) + row_bytes(int((k < a[2]).sum()), a[0])
-                      + a[2] * a[0].shape[1] * 4
-                      for a, k in zip(keyed_calls, keyed_lib_keys))
+    # keyed: each value word a sum must look at (every record's n_cmds,
+    # the live records' d_val), the key word of each nonzero value, the
+    # live count, and both outputs.
+    k_n_live = min(int(k_live.reshape(-1)[0]), k_rec.shape[0])
+    keyed_bytes = 4 * (k_rec.shape[0]
+                       + int((k_rec[:, hitfuse.K_NCMDS] != 0).sum())
+                       + k_n_live + int((k_dval[:k_n_live] != 0).sum())
+                       + 1 + 2 * k_out)
     gather_bytes = sum(
         row_bytes(int(torch.unique(torch.cat(idxs)).numel()), r)
         + nbytes(*idxs) + len(idxs) * idxs[0].shape[0] * r.shape[1] * 4
@@ -603,13 +634,16 @@ def main() -> int:
         "keyed": dict(
             route="cuda", source="piet_tpu_torch/csrc/keyed.cu",
             replaces="piet_tpu/ops/keyed.py:70",
-            run=lambda: tuple(keyed.keyed_sum(*a) for a in keyed_calls),
-            plain=lambda: tuple(keyed.keyed_sum_plain(*a)
-                                for a in keyed_calls),
+            run=lambda: keyed.record_keyed_sums(*keyed_args) + tuple(
+                keyed.keyed_sum(*a) for a in keyed_streams),
+            plain=lambda: keyed.record_keyed_sums_plain(*keyed_args)
+            + tuple(keyed.keyed_sum_plain(*a) for a in keyed_streams),
+            time=lambda: keyed.record_keyed_sums(*keyed_args),
+            time_plain=lambda: keyed.record_keyed_sums_plain(*keyed_args),
             library=lambda: tuple(
                 torch.zeros((a[2] + 1, a[0].shape[1]), device=dev)
                 .index_add_(0, k, a[0])
-                for a, k in zip(keyed_calls, keyed_lib_keys)),
+                for a, k in zip(keyed_streams, keyed_lib_keys)),
             bytes=keyed_bytes),
         "gatherm": dict(
             route="cuda", source="piet_tpu_torch/csrc/gatherm.cu",
@@ -664,10 +698,9 @@ def main() -> int:
     streams = [(tuple(r.shape), len(i), i[0].shape[0])
                for r, i in gather_calls]
     print(f"engine calls per frame on the affine tiger: expand 1 "
-          f"{tuple(exp_args[0].shape)} -> {exp_args[2]} rows; keyed "
-          f"{len(keyed_calls)} x {tuple(keyed_calls[0][0].shape)} -> "
-          f"{keyed_calls[0][2]}; gatherm (rows, streams, slots) {streams}",
-          flush=True)
+          f"{tuple(exp_args[0].shape)} -> {exp_args[2]} rows; keyed 1, two "
+          f"sums of {tuple(k_rec.shape)} records ({k_n_live} live) -> 2 x "
+          f"{k_out}; gatherm (rows, streams, slots) {streams}", flush=True)
 
     # ---- 4. the static path, bitwise against the numpy oracle ---------
     golds = {}
@@ -692,6 +725,7 @@ def main() -> int:
         assert launches["expand"] == launches["fine_dense"] == 0, launches
         assert all(v > 0 for k, v in launches.items()
                    if k not in ("expand", "fine_dense")), launches
+        assert launches["keyed"] == 1, launches
 
     # ---- 4b. the dense path ----------------------------------------------
     dense_launches = {}

@@ -27,7 +27,7 @@
 // - A block of 128 records finds the segment of its first and of its last
 //   live record once, each by a one-warp 32-way search (32 probes a step,
 //   a ballot picks the next range; about four dependent loads over 2^16
-//   segments).  Each thread then binary-searches only the segments its
+//   segments; owner_search.cuh, shared with expand.cu).  Each thread then binary-searches only the segments its
 //   block spans, a few, in lines the block has in L1.
 // - A thread writes its 24 words into the block's rows in shared memory
 //   (12 KB), and the block writes them out as one contiguous span of
@@ -36,6 +36,7 @@
 // - Blocks wholly past the live total write the dead records' constant
 //   pattern the same coalesced way, with no search and no segment read.
 #include "cmd_math.cuh"
+#include "owner_search.cuh"
 
 namespace {
 
@@ -45,36 +46,12 @@ constexpr int OUT_VEC = OUT_WORDS / 4;  // 16-byte words per record
 constexpr int K_KEY = 16;
 constexpr int K_TILE = 23;
 constexpr int BLOCK = 128;              // records per block
-constexpr unsigned FULL = 0xFFFFFFFFu;
 
 __device__ __forceinline__ float i2f(int v) { return __int_as_float(v); }
 
 // Word k of a dead record: zero, key = tile = +inf.
 __device__ __forceinline__ float dead_word(int k) {
   return (k == K_KEY || k == K_TILE) ? INFINITY : 0.f;
-}
-
-// The first segment in [0, n_seg) whose inclusive hit cumsum exceeds p
-// (n_seg when none), by one warp: each step probes 32 evenly spaced
-// segments of the range left and keeps the gap after the last probe that
-// does not exceed p.  Every lane returns the answer.
-__device__ int warp_search(const int* __restrict__ counts,
-                           const int* __restrict__ excl, int n_seg, int p) {
-  const int lane = threadIdx.x & 31;
-  int lo = 0, hi = n_seg;  // the answer lies in [lo, hi]
-  while (lo < hi) {
-    const int step = (hi - lo + 31) / 32;
-    const int q = lo + lane * step;
-    // Probes at or past hi count as exceeding p (the answer is <= hi).
-    const bool gt = q >= hi || excl[q] + counts[q] > p;
-    const unsigned m = __ballot_sync(FULL, gt);
-    const int f = m ? __ffs(m) - 1 : 32;  // the first exceeding probe
-    if (f == 0) break;                    // the answer is lo
-    const int q_last = lo + (f - 1) * step;
-    lo = q_last + 1;
-    if (f < 32) hi = min(hi, lo + step - 1);
-  }
-  return lo;
 }
 
 // Record p of segment row ``row`` (27 words): its 24 words into w.

@@ -52,8 +52,9 @@ _SIGNATURES = {
     "piet_sort": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P,
                   _P],
     "piet_fine_entries": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "piet_expand": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "piet_keyed": [_P, _P, _P, _I, _I, _I, _P],
+    "piet_expand": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "piet_keyed": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                   _I, _P],
     "piet_gatherm": [_P, _P, _P, _I, _I, _I, _I, _P],
     "piet_fine_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }

@@ -16,7 +16,7 @@ The fused route is taken for every scene: the JAX package gates it on by
 a record count measured on the TPU, but the fused and staged routes are
 bitwise identical, so the port drops the gate.  The same holds for the
 JAX pass's optional engines: the port always takes ``expand_rows``
-(ops/expand.py), ``keyed_sum`` (ops/keyed.py) and ``gather_monotone``
+(ops/expand.py), the keyed sums (ops/keyed.py) and ``gather_monotone``
 (ops/gatherm.py), in both branches.  Where the packed sort key
 ``tile * 2*(NI+1) + item*2 + class`` would reach 2^24 (inexact in f32), the
 sort takes two keys, (tile, item*2 + class), as the JAX pass does.  Entry
@@ -55,7 +55,7 @@ from .cmd_math import _f, div_det, dot2_det
 from .expand import expand_rows
 from .gatherm import gather_monotone
 from .hitfuse import hit_records_fused, split_fused
-from .keyed import keyed_sum
+from .keyed import record_keyed_sums
 from .sort import stable_sort_multi
 
 _INF = float("inf")
@@ -360,8 +360,9 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
 
     ``taps``: optional dict that receives each kernel's inputs (keys
     "candfuse", "hitfuse", "sort" -- the keys tuple, the values and the
-    key bounds; "keyed" and "gatherm" as lists of calls; "expand" on the
-    device-derived segment stage) -- for tests and chip_smoke.py.
+    key bounds; "keyed" -- the hit records, their live count and n_out;
+    "gatherm" as a list of calls; "expand" on the device-derived segment
+    stage) -- for tests and chip_smoke.py.
     """
     if output not in ("entries", "dense"):
         raise ValueError(f"unknown coarse output {output!r}")
@@ -414,20 +415,23 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
     xmx_y = seg_f[:, 10]
     is_fill_seg = ((seg_rows[:, 12] & 1) != 0) & seg_valid
 
-    # ---- hit records (kernel B) + per-candidate command counts ---------
-    hit_valid = torch.arange(max_hits, dtype=I32, device=dev) < n_hits
+    # ---- hit records (kernel B) ----------------------------------------
     hit_kw = dict(tile_w=tile_w, tile_h=tile_h, tiles_x=tiles_x,
                   stride=stride if packed_ok else 0)
     if taps is not None:
         taps["hitfuse"] = ((seg_rows, sp.hit_counts, sp.hit_excl, n_hits),
                            dict(row0=row0, cap=max_hits, **hit_kw))
-    fused = split_fused(hit_records_fused(
-        seg_rows, sp.hit_counts, sp.hit_excl, n_hits, row0, max_hits,
-        **hit_kw))
-    h_cand = fused["h_cand"].to(I32)
-    emit_args = (fused["n_cmds"][:, None].contiguous(), h_cand,
-                 max_candidates)
-    cand_emit = keyed_sum(*emit_args)[:, 0].to(I32)
+    hit_rec = hit_records_fused(seg_rows, sp.hit_counts, sp.hit_excl,
+                                n_hits, row0, max_hits, **hit_kw)
+    fused = split_fused(hit_rec)
+
+    # ---- per-candidate command counts and winding deltas ---------------
+    # Both keyed sums in one call on the records: n_cmds by h_cand, and
+    # d_val by d_cand over the live records (zero values skipped).
+    if taps is not None:
+        taps["keyed"] = (hit_rec, n_hits, max_candidates)
+    cand_emit, delta_scatter = record_keyed_sums(hit_rec, n_hits,
+                                                 max_candidates)
 
     # ---- winding deltas -> backdrop ------------------------------------
     # Count-only diagnostic (rows whose top edge lies in [ymin, ymax]).
@@ -436,11 +440,6 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
                          max=row0 + tiles_y - 1)
     n_deltas = torch.where(is_fill_seg & (a != 0),
                            torch.clamp(d_y_hi - d_y_lo + 1, min=0), 0).sum()
-    d_val = fused["d_val"]
-    dk = torch.where(hit_valid & (d_val != 0.0), fused["d_cand"].to(I32),
-                     max_candidates)
-    delta_args = (d_val[:, None].contiguous(), dk, max_candidates)
-    delta_scatter = keyed_sum(*delta_args)[:, 0]
     # Per-(item, row) prefix along tx: candidates are row-major per item,
     # so subtract the running total at each row start.
     csum = torch.cumsum(delta_scatter, 0)
@@ -453,7 +452,6 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
     (sb,) = gather_monotone(csum_rows, (sb_idx,))
     start_base = torch.where(cand_row_start > 0, sb[:, 0], 0.0)
     if taps is not None:
-        taps["keyed"] = [emit_args, delta_args]
         taps.setdefault("gatherm", []).append((csum_rows, (sb_idx,)))
     backdrop = csum - start_base
 

@@ -8,7 +8,11 @@ all-zero bits.  Rows are any 32-bit payload and move as int32 bits.
 
 The CUDA kernel is ``csrc/expand.cu``; :func:`expand_rows_plain` is its
 plain PyTorch version (``expand_rows_xla`` of the JAX module), bit for
-bit.
+bit.  The kernel takes blocks of :data:`BLOCK` slots (the owners of a
+block's first and last live slot by a one-warp search, then each slot's
+owner within that span) and stages up to :data:`STAGE_WORDS` output words
+of a block in shared memory before its 16-byte stores; it reads the live
+total itself, so a call on the card is one device op.
 """
 
 from __future__ import annotations
@@ -19,6 +23,11 @@ from .. import kernels
 from .candfuse import owner_of
 
 I32 = torch.int32
+
+#: Constants of csrc/expand.cu: slots per block, and output words staged
+#: in shared memory at once.
+BLOCK = 128
+STAGE_WORDS = 4096
 
 
 def _int_bits(rows: torch.Tensor) -> torch.Tensor:
@@ -70,9 +79,8 @@ def expand_rows(rows: torch.Tensor, counts: torch.Tensor, cap: int,
         raise ValueError("expand_rows needs at least one source row")
     if cap * words >= 2 ** 31:
         raise ValueError("expand_rows: cap * words must stay below 2^31")
-    total = excl[-1:] + counts[-1:]
     out = torch.empty((cap, words), dtype=I32, device=rows.device)
     kernels.launch("expand", "piet_expand", bits.data_ptr(),
-                   counts.data_ptr(), excl.data_ptr(), total.data_ptr(),
-                   out.data_ptr(), n_src, words, cap)
+                   counts.data_ptr(), excl.data_ptr(), out.data_ptr(),
+                   n_src, words, cap)
     return out.view(rows.dtype)

@@ -31,6 +31,8 @@ from piet_tpu_torch.renderer.renderer import (Renderer, _solid_to_present_u32,
 from piet_tpu_torch.renderer.segstage import build_seg_pre
 from piet_tpu_torch.scene import affine, animate, fixtures
 from piet_tpu_torch.scene.svg import make_tiger
+from _engine_cases import (EXPAND_CASES, EXPAND_WORDS, KEYED_SYNTH,
+                           expand_rows_case, keyed_synth_case)
 
 
 def test_dispatch_rule():
@@ -343,8 +345,9 @@ def test_cuda_engines_equal_plain_versions():
     taps = _anim_taps("cuda")
     assert _same_bits(expand.expand_rows(*taps["expand"]),
                       expand.expand_rows_plain(*taps["expand"]))
-    for args in taps["keyed"]:
-        assert _same_bits(keyed.keyed_sum(*args), keyed.keyed_sum_plain(*args))
+    for g, w in zip(keyed.record_keyed_sums(*taps["keyed"]),
+                    keyed.record_keyed_sums_plain(*taps["keyed"])):
+        assert _same_bits(g, w)
     assert len(taps["gatherm"]) == 2
     for rows, idxs in taps["gatherm"]:
         for g, w in zip(gatherm.gather_monotone(rows, idxs),
@@ -376,6 +379,105 @@ def test_cuda_engines_edge_cases():
     for g, w in zip(gatherm.gather_monotone(rows, idx),
                     gatherm.gather_monotone_plain(rows, idx)):
         assert _same_bits(g, w)
+
+
+def _keyed_record_case(case, cuda_inputs):
+    if case.startswith("synthetic"):
+        return keyed_synth_case(case.split(" ", 1)[1], "cuda")
+    _, taps, _ = cuda_inputs
+    rec, n_live, n_out = taps["keyed"]
+    if case == "tiger, stride 0":
+        (rows, counts, excl, total), kw = taps["hitfuse"]
+        rec = hitfuse.hit_records_fused(rows, counts, excl, total,
+                                        **dict(kw, stride=0))
+    return rec, n_live, n_out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["tiger, stride > 0", "tiger, stride 0"]
+                         + [f"synthetic {k}" for k in KEYED_SYNTH])
+def test_cuda_keyed_equals_plain(case, cuda_inputs):
+    """The keyed kernel against its plain versions: two streams read in
+    place from kernel B's records (both key layouts of the record, and the
+    synthetic records: keys out of range, -0.0 values, live counts 0, 1,
+    cap and past cap) in one launch, and one stream through keyed_sum."""
+    rec, n_live, n_out = _keyed_record_case(case, cuda_inputs)
+    kernels.reset_launches()
+    got = keyed.record_keyed_sums(rec, n_live, n_out)
+    assert kernels.LAUNCHES["keyed"] == 1
+    want = keyed.record_keyed_sums_plain(rec, n_live, n_out)
+    assert got[0].dtype == torch.int32 and got[1].dtype == torch.float32
+    assert all(_same_bits(g, w) for g, w in zip(got, want))
+    assert not bool((got[1].view(torch.int32) == -2 ** 31).any())
+    for args in keyed.record_streams(rec, n_live, n_out):
+        assert _same_bits(keyed.keyed_sum(*args),
+                          keyed.keyed_sum_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("words", EXPAND_WORDS)
+@pytest.mark.parametrize("case", sorted(EXPAND_CASES))
+def test_cuda_expand_equals_plain(case, words):
+    """The expand kernel against its plain version: sources owning more
+    than a block, zero-count runs, ragged last blocks, totals of 0, 1 and
+    cap and past cap, 1-40 words a row (two staging rounds at 40)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rows, counts, cap = expand_rows_case(case, words)
+    rows, counts = torch.from_numpy(rows).cuda(), torch.from_numpy(
+        counts).cuda()
+    for excl in (None, torch.cumsum(counts, 0, dtype=torch.int32) - counts):
+        kernels.reset_launches()
+        got = expand.expand_rows(rows, counts, cap, excl)
+        assert kernels.LAUNCHES["expand"] == 1
+        assert _same_bits(got, expand.expand_rows_plain(rows, counts, cap,
+                                                        excl))
+
+
+def _device_ops(fn):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+
+
+@pytest.mark.cuda
+def test_cuda_engine_calls_are_one_or_two_device_ops(cuda_inputs):
+    """expand_rows with its offsets given is one device op (the kernel
+    reads the live total itself); both keyed sums are a memset and one
+    launch."""
+    _, taps, _ = cuda_inputs
+    args = _anim_taps("cuda")["expand"]
+    ops = _device_ops(lambda: expand.expand_rows(*args))
+    assert len(ops) == 1, ops
+    ops = _device_ops(lambda: keyed.record_keyed_sums(*taps["keyed"]))
+    assert len(ops) == 2, ops
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("output", ["entries", "dense"])
+def test_cuda_one_keyed_launch_per_coarse_pass(output, cuda_inputs):
+    """A coarse pass makes one keyed launch for both sums, host-staged or
+    with segments derived on the card."""
+    cfg, _, _ = cuda_inputs
+    kw = dict(tiles_x=cfg.tiles_x, tiles_y=cfg.tiles_y,
+              tile_w=cfg.tile_width, tile_h=cfg.tile_height,
+              max_segments=cfg.max_segments, max_hits=cfg.max_hits,
+              max_candidates=cfg.max_candidates, output=output,
+              cmd_capacity=cfg.cmd_capacity)
+    scene = make_tiger(scale=1.0)
+    for seg_pre in (True, False):
+        dev = prepare_scene(scene, cfg, "cuda", seg_pre=seg_pre)
+        kernels.reset_launches()
+        coarse.coarse_rasterize(dev, **kw)
+        assert kernels.LAUNCHES["keyed"] == 1, (seg_pre, kernels.LAUNCHES)
+        assert kernels.LAUNCHES["expand"] == (0 if seg_pre else 1)
 
 
 @pytest.mark.cuda
