@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Time the port's fine, hit-record, sort, keyed and expand kernels of
-two source trees on one CUDA card, in turns, and print each tree's
-compiler statistics.
+"""Time the port's fine, hit-record, sort, keyed, expand, candfuse and
+gatherm kernels of two source trees on one CUDA card, in turns, and
+print each tree's compiler statistics.
 
     python3 ab_kernels.py ROOT_A ROOT_B
     python3 ab_kernels.py --ptxas ROOT
     python3 ab_kernels.py --sort-variants ROOT
+    python3 ab_kernels.py --cand-variants ROOT
 
 ROOT_A and ROOT_B are checkouts of this repository (e.g. a parent commit
 unpacked with ``git archive`` into a gitignored directory, and the working
@@ -19,6 +20,11 @@ times, on the static 1664^2 tiger (32x128 tiles) with CUDA events around
                the group one at 16x16 tiles;
   hitfuse      kernel B on the frame's inputs;
   fine         kernel D on the frame's entry stream, and at 16x16 tiles;
+  candfuse     kernel A as the tree's coarse pass calls it (the item rows
+               and their expansion: one call where the tree has
+               ``coarse.cand_stage``, else ``cand_inputs``' glue and
+               ``cand_records_fused``), and the expansion alone, each with
+               its device ops;
 
 and counts the device ops of one static frame on each route
 (torch.profiler).  On the affine-spun tiger at 1664^2 (t = 23/60, the
@@ -31,6 +37,12 @@ frame chip_smoke.py's engines are timed on; each tree's own
                ``keyed_sum`` calls), and the two sums as two
                ``keyed_sum`` calls without the glue;
   expand       ``expand_rows`` on the frame's item rows;
+  gatherm      a frame's endpoint fetch and backdrop as the tree's coarse
+               pass makes them (one call each where the tree has
+               ``gatherm.gather_endpoints``, else the index glue, two
+               ``gather_monotone`` calls and the masks), with their device
+               ops, and the two ``gather_monotone`` calls alone on the same
+               index streams;
 
 and the device ops of an affine-tiger and an animated-fixture frame.
 Then kernel C's device-memory route (above 196,608
@@ -40,7 +52,7 @@ each beside torch.sort on the same first key, and the beziers_10k frame (buckete
 20 frames, CUDA events around each call), device busy per frame and
 device ops per frame (torch.profiler over 10 frames).  Then ``nvcc
 -Xptxas -v`` on each tree's fine_dense.cu, hitfuse.cu, fine.cu, sort.cu,
-keyed.cu and expand.cu, with the build's flags: registers, spill bytes and
+keyed.cu, expand.cu, candfuse.cu and gatherm.cu, with the build's flags: registers, spill bytes and
 shared memory per kernel.  ``--sort-variants`` builds design variants of ROOT's
 csrc/sort.cu (each a text substitution that must match the source once;
 see SORT_VARIANTS), loads each library with ctypes and times its
@@ -48,7 +60,13 @@ device-memory route in turns on the same cases -- beziers_10k's keys at
 both sizes, 2^20 random pairs with one and two keys -- beside torch.sort,
 each bitwise against the plain sort (one variant skips the look-back and
 is timed only), then each kernel's device time per call
-(torch.profiler).  Every line names the card and its power limit.  Needs
+(torch.profiler).  ``--cand-variants`` does the same for csrc/candfuse.cu
+(CAND_VARIANTS): each variant's item rows alone and the coarse pass's call
+(rows and expansion) on the static 1664^2 tiger, on beziers_10k at
+1024^2 and on beziers_10k's items repeated to CAND_REPEATS item slots, in
+turns, each compared bitwise with the plain version (the variants that
+skip work are timed only) and beside the plain version's time.  Every line names the card and
+its power limit.  Needs
 one card; exits non-zero without one.
 """
 
@@ -61,6 +79,61 @@ import subprocess
 import sys
 
 SPIN_CYCLES = 50_000_000
+
+
+def time_ms(fn, reps=20):
+    """Mean device ms of ``fn`` over ``reps`` back-to-back calls: CUDA
+    events around the batch, enqueued behind a GPU spin."""
+    import torch
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def build_variants(kernels, source: str, variants: dict, entries):
+    """Each variant of csrc/``source`` (text substitutions that must each
+    match the source once), built into a shared library of its own (one
+    nvcc each, all at once) and loaded with ctypes, its C ``entries``
+    typed.  Returns ({name: library}, {name: source text})."""
+    import ctypes
+    src = (kernels.CSRC / source).read_text()
+    out_dir = kernels.BUILD_DIR / f"{source.split('.')[0]}_variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cmds, texts = {}, {}
+    for k, (name, subs) in enumerate(variants.items()):
+        text = src
+        for a, b in subs:
+            assert text.count(a) == 1, (name, a)
+            text = text.replace(a, b)
+        texts[name] = text
+        (out_dir / f"v{k}.cu").write_text(text)
+        cmds[name] = [kernels._nvcc()] + kernels.NVCC_FLAGS + [
+            "-I", str(kernels.CSRC), "-shared", "-o",
+            str(out_dir / f"v{k}.so"), str(out_dir / f"v{k}.cu")]
+    procs = {n: subprocess.Popen(c, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+             for n, c in cmds.items()}
+    libs = {}
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"variant {name}: nvcc failed\n{log}")
+        lib = ctypes.CDLL(cmds[name][-2])
+        for entry in entries:
+            fn = getattr(lib, entry)
+            fn.argtypes = kernels._SIGNATURES[entry]
+            fn.restype = ctypes.c_int
+        libs[name] = lib
+    return libs, texts
 
 
 def worker(root: str) -> None:
@@ -78,20 +151,6 @@ def worker(root: str) -> None:
     assert kernels.__file__.startswith(os.path.abspath(root)), kernels.__file__
     kernels.library()
     dev = torch.device("cuda")
-
-    def time_ms(fn, reps=20):
-        fn()
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SPIN_CYCLES)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
 
     def device_ops(render_one):
         render_one()
@@ -157,11 +216,12 @@ def worker(root: str) -> None:
         hargs, hkw = taps["hitfuse"]
         out["hitfuse"] = time_ms(
             lambda: hitfuse.hit_records_fused(*hargs, **hkw))
+        out.update(kernel_a(d, cfg, taps, device_ops))
         for impl in ("entries", "dense"):
             rr = Renderer(cfg, dev, fine_impl=impl)
             out[f"device ops, {impl} frame"] = device_ops(
                 lambda: rr.render_device(d))
-    out.update(engines(root, scene, dev, time_ms, device_ops))
+    out.update(engines(root, scene, dev, device_ops))
     bez = fixtures.get_scene("beziers_10k")
     for bucket, tag in ((False, "261504 beziers fitted"),
                         (True, "368640 beziers bucketed")):
@@ -201,7 +261,68 @@ def worker(root: str) -> None:
     print("AB " + json.dumps(out), flush=True)
 
 
-def engines(root, scene, dev, time_ms, device_ops) -> dict:
+def kernel_a(d, cfg, taps, device_ops) -> dict:
+    """Kernel A on the static tiger, as the tree's coarse pass calls it and
+    its expansion alone."""
+    from piet_tpu_torch.ops import candfuse, coarse
+    rk = dict(tiles_x=cfg.tiles_x, tiles_y=cfg.tiles_y,
+              tile_w=cfg.tile_width, tile_h=cfg.tile_height, row0=0)
+    cap = cfg.max_candidates
+    if hasattr(coarse, "cand_stage"):
+        def call():
+            return coarse.cand_stage(d, cap=cap, **rk)
+    else:
+        def call():
+            ci = coarse.cand_inputs(d, **rk)
+            return candfuse.cand_records_fused(
+                ci.cand_pack, ci.counts, ci.excl, ci.total, 0, cap,
+                tiles_x=cfg.tiles_x)
+    ci, akw = taps["candfuse"]
+    return {
+        "candfuse, item rows and expansion as the coarse pass calls them":
+            time_ms(call),
+        "device ops, candfuse as the coarse pass calls it": device_ops(call),
+        "candfuse, expansion alone": time_ms(
+            lambda: candfuse.cand_records_fused(*ci, **akw)),
+    }
+
+
+def _glue_endpoints(gatherm, sitem, points, n_segs):
+    """The endpoint fetch as the coarse pass made it before it was one
+    call: the index streams, gather_monotone, the masks."""
+    import torch
+    from piet_tpu_torch.scene.scene import TAG_CLIP, TAG_FILL
+    i32 = torch.int32
+    S = sitem.shape[0]
+    np_max = points.shape[0] - 1
+    seg_idx = torch.arange(S, dtype=i32, device=sitem.device)
+    seg_valid = seg_idx < n_segs
+    seg_local = seg_idx - sitem[:, 10]
+    s_tag = sitem[:, 0]
+    i0 = sitem[:, 2] + seg_local
+    wrap = (((s_tag == TAG_FILL) | (s_tag == TAG_CLIP))
+            & (seg_local + 1 == sitem[:, 1]))
+    i0_g = torch.where(seg_valid, torch.clamp(i0, 0, np_max), np_max)
+    j1_g = torch.where(seg_valid, torch.clamp(i0 + 1, 0, np_max), np_max)
+    p0e, p1n = gatherm.gather_monotone(points, (i0_g, j1_g))
+    p1e = torch.where(wrap[:, None], sitem.view(torch.float32)[:, 12:14],
+                      p1n)
+    return (torch.where(seg_valid[:, None], p0e, 0.0),
+            torch.where(seg_valid[:, None], p1e, 0.0)), (i0_g, j1_g)
+
+
+def _glue_backdrop(gatherm, csum, ca_i, cand_ty):
+    """The backdrop as the coarse pass made it before it was one call."""
+    import torch
+    cap = csum.shape[0]
+    crs = ca_i[:, 18] + (cand_ty - ca_i[:, 20]) * torch.clamp(ca_i[:, 23],
+                                                             min=1)
+    sb_idx = torch.clamp(crs - 1, 0, cap - 1)
+    (sb,) = gatherm.gather_monotone(csum[:, None], (sb_idx,))
+    return csum - torch.where(crs > 0, sb[:, 0], 0.0), sb_idx
+
+
+def engines(root, scene, dev, device_ops) -> dict:
     """keyed and expand on the affine tiger's frame at t = 23/60, and the
     device ops of an affine-tiger and an animated-fixture frame."""
     import torch
@@ -250,6 +371,35 @@ def engines(root, scene, dev, time_ms, device_ops) -> dict:
         lambda: expand.expand_rows(*exp_args))
     out["device ops, expand_rows call"] = device_ops(
         lambda: expand.expand_rows(*exp_args))
+    # gatherm's two calls on the frame: the segment rows, the point
+    # table, the live segment count, the deltas' running sum and the
+    # candidate rows as the coarse pass holds them.
+    from piet_tpu_torch.ops import candfuse, gatherm
+    sitem = expand.expand_rows(*exp_args)
+    points = render_t.scene_at(t).points
+    n_segs = (exp_args[3][-1:] + exp_args[1][-1:]).to(i32)
+    csum = torch.cumsum(keyed.record_keyed_sums(rec, n_hits, n_out)[1], 0)
+    ci, akw = taps["candfuse"]
+    ca, _, cand_ty, _ = candfuse.cand_records_fused(*ci, **akw)
+    ca_i = ca.view(i32)
+    if hasattr(gatherm, "gather_endpoints"):
+        def fetches():
+            return (gatherm.gather_endpoints(sitem, points, n_segs),
+                    gatherm.backdrop_from_csum(csum, ca_i, cand_ty))
+    else:
+        def fetches():
+            return (_glue_endpoints(gatherm, sitem, points, n_segs),
+                    _glue_backdrop(gatherm, csum, ca_i, cand_ty))
+    streams = [(points, _glue_endpoints(gatherm, sitem, points, n_segs)[1]),
+               (csum[:, None], (_glue_backdrop(gatherm, csum, ca_i,
+                                               cand_ty)[1],))]
+    out["gatherm, a frame's fetches as the coarse pass makes them"] = (
+        time_ms(fetches))
+    out["device ops, gatherm fetches as the coarse pass makes them"] = (
+        device_ops(fetches))
+    out["gatherm, two gather_monotone calls on the frame's streams"] = (
+        time_ms(lambda: [gatherm.gather_monotone(r, i)
+                         for r, i in streams]))
     out["device ops, affine tiger frame"] = device_ops(lambda: render_t(t))
     _, anim_t, _, _ = chip_smoke.animated_fixture(dev)
     out["device ops, animated fixture frame"] = device_ops(
@@ -263,7 +413,7 @@ def ptxas(root: str) -> str:
     lines = []
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     for name in ("fine_dense", "hitfuse", "fine", "sort", "keyed",
-                 "expand"):
+                 "expand", "candfuse", "gatherm"):
         src = kernels.CSRC / f"{name}.cu"
         obj = kernels.BUILD_DIR / f"ptxas.{name}.o"
         res = subprocess.run(
@@ -336,32 +486,11 @@ def sort_variants(root: str) -> None:
     from piet_tpu_torch.renderer.renderer import Renderer
     from piet_tpu_torch.scene import fixtures
     card = card_line()
-    src = (kernels.CSRC / "sort.cu").read_text()
-    out_dir = kernels.BUILD_DIR / "sort_variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    cmds, tiles = {}, {}
-    for k, (name, subs) in enumerate(SORT_VARIANTS.items()):
-        text = src
-        for a, b in subs:
-            assert text.count(a) == 1, (name, a)
-            text = text.replace(a, b)
-        tiles[name] = 256 * int(re.search(r"constexpr int P_ITEMS = (\d+);",
-                                          text).group(1))
-        (out_dir / f"v{k}.cu").write_text(text)
-        cmds[name] = [kernels._nvcc()] + kernels.NVCC_FLAGS + [
-            "-shared", "-o", str(out_dir / f"v{k}.so"), str(out_dir / f"v{k}.cu")]
-    procs = {n: subprocess.Popen(c, stdout=subprocess.PIPE,
-                                 stderr=subprocess.STDOUT, text=True)
-             for n, c in cmds.items()}
-    libs = {}
-    for name, proc in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"variant {name}: nvcc failed\n{log}")
-        lib = ctypes.CDLL(cmds[name][-2])
-        lib.piet_sort.argtypes = kernels._SIGNATURES["piet_sort"]
-        lib.piet_sort.restype = ctypes.c_int
-        libs[name] = lib
+    libs, texts = build_variants(kernels, "sort.cu", SORT_VARIANTS,
+                                 ("piet_sort",))
+    tiles = {name: 256 * int(re.search(r"constexpr int P_ITEMS = (\d+);",
+                                       text).group(1))
+             for name, text in texts.items()}
     dev = torch.device("cuda")
 
     def run(name, keys, val, bounds):
@@ -382,20 +511,6 @@ def sort_variants(root: str) -> None:
             scratch.data_ptr(), kernels.stream())
         assert rc == 0, (name, rc)
         return ok, ov
-
-    def time_ms(fn, reps=20):
-        fn()
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SPIN_CYCLES)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
 
     cases = {}
     bez = fixtures.get_scene("beziers_10k")
@@ -458,6 +573,141 @@ def sort_variants(root: str) -> None:
                 in by.items()), flush=True)
 
 
+#: Design variants of csrc/candfuse.cu: name -> (text, replacement) pairs.
+CAND_VARIANTS = {
+    "as built": [],
+    "1024 items a block": [
+        ("constexpr int PREP_THREADS = 512; ",
+         "constexpr int PREP_THREADS = 1024;")],
+    "256 items a block": [
+        ("constexpr int PREP_THREADS = 512; ",
+         "constexpr int PREP_THREADS = 256; ")],
+    "each block counts every item before it (no cand_count)": [
+        ("""  if (blockIdx.x > 0) {
+    wait_prior();
+    for (int j = tid; j < (int)blockIdx.x; j += PREP_THREADS)
+      before += sums[j];
+  }""", """#pragma unroll 4
+  for (int j = tid; j < i0; j += PREP_THREADS)
+    before += item_count(s, j, n_items, g);"""),
+        ("  if (err == 0 && blocks > 1)\n    err = launch(cand_count",
+         "  if (false)\n    err = launch(cand_count"),
+        ("                 blocks > 1, stream, s, g, ni,",
+         "                 false, stream, s, g, ni,")],
+    "no row stores (wrong, timed only)": [
+        ("  int4* dst = cand_pack + (size_t)i0 * QUADS;",
+         "  if (ni > 0) return;\n  int4* dst = cand_pack + (size_t)i0 * QUADS;")],
+    "each thread stores its row": [
+        ("    int4* st = rows_sh + tid * QUADS;\n    const int sw = tid & (QUADS - 1);",
+         "    int4* st = cand_pack + (size_t)i * QUADS;\n    const int sw = 0;"),
+        ("  for (int k = tid; k < n_quads; k += PREP_THREADS) {",
+         "  for (int k = tid; k < 0; k += PREP_THREADS) {")],
+    "no work (wrong, timed only)": [
+        ("  let_next_start();\n  extern",
+         "  let_next_start();\n  if (ni > 0) return;\n  extern")],
+}
+
+#: Item slots of the scenes --cand-variants builds by repeating
+#: beziers_10k's items, past any fixture (the prefix's growth with NI).
+CAND_REPEATS = (131_072, 524_288)
+
+
+def cand_variants(root: str) -> None:
+    sys.path.insert(0, root)
+    import types
+
+    import torch
+
+    from piet_tpu_torch import kernels
+    from piet_tpu_torch.host import make_tiger
+    from piet_tpu_torch.ops import candfuse, coarse
+    from piet_tpu_torch.renderer.renderer import Renderer
+    from piet_tpu_torch.scene import fixtures
+    card = card_line()
+    libs, _ = build_variants(kernels, "candfuse.cu", CAND_VARIANTS,
+                             ("piet_cand_prep", "piet_cand_stage"))
+    dev = torch.device("cuda")
+
+    def run(name, scene, kw, cap, poison=False):
+        """One call of a variant: the rows (piet_cand_prep), or the rows
+        and their expansion (piet_cand_stage) where cap is given, as the
+        coarse pass calls it.  With ``poison`` the outputs start as a
+        marker pattern, so that words a variant leaves unwritten differ
+        from the plain version's."""
+        ni = scene.tags.shape[0]
+
+        def out(shape):
+            return (torch.full(shape, 0x5A5A5A5A, dtype=torch.int32,
+                               device=dev) if poison else
+                    torch.empty(shape, dtype=torch.int32, device=dev))
+        rows = [out((ni, 32)), out((ni,)), out((ni,)), out((1,))]
+        # Sized for the smallest block a variant takes (256 items).
+        sums = out((ni // 256 + 1,))
+        outs = [out((cap, 32)), out((cap,)), out((cap,))] if cap else []
+        fields = [getattr(scene, f) for f, _, _ in candfuse.SCENE_FIELDS]
+        ptrs = [t.data_ptr() for t in fields + [scene.n_items, sums] + rows
+                + outs]
+        grid = (kw["tiles_x"], kw["tiles_y"], kw["tile_w"], kw["tile_h"],
+                kw["row0"])
+        if cap:
+            rc = libs[name].piet_cand_stage(*ptrs, ni, cap, *grid,
+                                            kernels.stream())
+        else:
+            rc = libs[name].piet_cand_prep(*ptrs, ni, *grid,
+                                           kernels.stream())
+        assert rc == 0, (name, rc)
+        return rows + outs
+
+    def plain(scene, kw, cap):
+        ci = coarse.cand_inputs_plain(scene, **kw)
+        if not cap:
+            return list(ci)
+        return list(ci) + list(candfuse.cand_records_fused_plain(
+            *ci, kw["row0"], cap, tiles_x=kw["tiles_x"])[:3])
+
+    cases = {}
+    for tag, sc, size in (("tiger 1664", make_tiger(), 1664),
+                          ("beziers_10k 1024",
+                           fixtures.get_scene("beziers_10k"), 1024)):
+        r = Renderer.for_scene(sc, size, size, device=dev)
+        c = r.config
+        cases[tag] = (r.prepare(sc), dict(
+            tiles_x=c.tiles_x, tiles_y=c.tiles_y, tile_w=c.tile_width,
+            tile_h=c.tile_height, row0=0), c.max_candidates)
+    bez, bez_kw, _ = cases["beziers_10k 1024"]
+    for n in CAND_REPEATS:
+        reps = -(-n // bez.tags.shape[0])
+        big = types.SimpleNamespace(**{
+            f: getattr(bez, f).repeat(reps, *[1] * (getattr(bez, f).dim()
+                                                   - 1))[:n].contiguous()
+            for f, _, _ in candfuse.SCENE_FIELDS})
+        big.n_items = torch.tensor([n], dtype=torch.int32, device=dev)
+        total = int(coarse.cand_inputs_plain(big, **bez_kw).total[0])
+        cases[f"beziers_10k's items repeated to {n:,} slots"] = (
+            big, bez_kw, -(-total // 128) * 128)
+    for case, (scene, kw, cap) in cases.items():
+        for what, c in (("item rows", None), ("rows and expansion", cap)):
+            want = plain(scene, kw, c)
+            times = {name: [] for name in libs}
+            for order in (list(libs), list(reversed(libs))):
+                for name in order:
+                    times[name].append(time_ms(
+                        lambda: run(name, scene, kw, c)))
+            cols = []
+            for name in libs:
+                got = run(name, scene, kw, c, poison=True)
+                torch.cuda.synchronize()
+                same = all(torch.equal(g.view(torch.int32),
+                                       w.view(torch.int32))
+                           for g, w in zip(got, want))
+                cols.append(f"{name} {times[name][0]:.4f}/"
+                            f"{times[name][1]:.4f}"
+                            f"{'' if same else ' (differs from plain)'}")
+            cols.append(f"plain {time_ms(lambda: plain(scene, kw, c)):.4f}")
+            print(f"candfuse variants, {case}, {what} [{card}]: "
+                  + " | ".join(cols), flush=True)
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -471,12 +721,20 @@ def main() -> int:
     ap.add_argument("--worker")
     ap.add_argument("--ptxas")
     ap.add_argument("--sort-variants")
+    ap.add_argument("--cand-variants")
     a = ap.parse_args()
     if a.worker:
         worker(a.worker)
         return 0
     if a.ptxas:
         print(ptxas(a.ptxas), flush=True)
+        return 0
+    if a.cand_variants:
+        import torch
+        if not torch.cuda.is_available():
+            print("ab_kernels: needs a CUDA card", file=sys.stderr)
+            return 1
+        cand_variants(a.cand_variants)
         return 0
     if a.sort_variants:
         import torch

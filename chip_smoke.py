@@ -11,21 +11,27 @@ and exits non-zero:
   2. build the kernels from csrc/ with nvcc, one process per source
      (timed);
   3. every kernel against its plain PyTorch version on the same inputs,
-     bitwise (tolerance 0): candfuse and hitfuse on the static 1664^2
-     tiger's own inputs; sort on the tiger's keys, on the two keys of the
-     unpacked configuration (below), on the tiger's keys with a val that
+     bitwise (tolerance 0): candfuse -- the item rows from the scene
+     (cand_inputs) on the static 1664^2 tiger, the affine tiger and
+     beziers_10k at 1024^2, the coarse pass's call (rows and expansion)
+     on the same three, and the expansion alone on the static tiger's
+     rows -- and hitfuse on the static tiger's own inputs; sort on the
+     tiger's keys, on the two keys of the unpacked configuration
+     (below), on the tiger's keys with a val that
      is not increasing, on beziers_10k's keys at 1024^2 (261,504 pairs
      fitted, 368,640 bucketed: the device-memory route), and on random
      keys at 196,609, 261,504, 368,640 and 2^20 pairs, one and two keys
      (and with -0.0 key words); fine
      (kernel D) on the tiger's entries (no group command: the stackless
      path), on the clip, gradient and multi-subpath fixtures' at 1024^2
-     (the stack path) and on the tiger's at 16x16 tiles; expand and
-     gatherm on the affine-animated tiger's (segments derived on the
-     device), keyed on its hit records (both of the coarse pass's sums in
-     one call, read in place, and each sum through the one-stream
-     keyed_sum); fine_dense on the static tiger's dense PTCL in both
-     instantiations (fine_rasterize and fine_rasterize_xla), in the group
+     (the stack path) and on the tiger's at 16x16 tiles; expand on the
+     affine-animated tiger's (segments derived on the device); gatherm's
+     endpoint fetch on the affine tiger's, its backdrop on the static
+     and the affine tiger's, and the generic gather on the index streams
+     of those three calls; keyed on the affine tiger's hit records
+     (both of the coarse pass's sums in one call, read in place, and each
+     sum through the one-stream keyed_sum); fine_dense on the static
+     tiger's dense PTCL in both instantiations (fine_rasterize and fine_rasterize_xla), in the group
      one on the three fixtures, in both on the tiger's at 16x16 tiles and
      on the synthetic PTCLs of raster/synth_ptcl.py (tile widths 16, 24,
      128; group commands first at slots 0-128, streaks across the chunk
@@ -36,7 +42,7 @@ and exits non-zero:
      the same at 3840x2160, with the launch counters reset just before
      and read just after each; the images must equal the numpy oracle
      bitwise, every kernel of the path (all but expand and fine_dense)
-     must have run, and keyed once (both sums in one call);
+     must have run, and keyed, candfuse and gatherm once each;
   4b. the dense path (fine_impl="dense"): the same two tiger frames
      against the same oracle images, with fine_dense run, entries-fine
      not run and no PTCL overflow; the three group fixtures at 1024^2; one
@@ -55,14 +61,16 @@ and exits non-zero:
      fixture at 1024^2 (make_animated_render_fn).  Each frame must equal
      the numpy oracle rendered from that frame's own device-computed
      arrays, bitwise, with no capacity overflow; all seven kernels of the
-     entries route must have run;
+     entries route must have run, candfuse once a frame and gatherm
+     twice (the endpoint fetch and the backdrop);
   6. timing with CUDA events: ms/frame on every path (both routes of the
      static tiger), device ms with the launch overhead hidden, a
      torch.profiler trace (device-busy share and top device ops, and the
-     device ops per frame beside commit aea80da's, before the keyed sums
-     became one call and expand one op), and each
-     kernel beside its plain version, its bound and, where one PyTorch call
-     computes the same function, that call; then kernel C's device-memory
+     device ops per frame beside commit 2581747's, before kernel A took
+     its item rows and gatherm its indices and masks into their
+     launches), and each kernel beside its plain version, its bound and,
+     where one PyTorch call computes the same function, that call (and
+     kernel A's and gatherm's calls apart); then kernel C's device-memory
      route on beziers_10k's keys (both sizes) and on 2^20 pairs beside
      its plain version, torch.sort and its bound, the three BASELINE
      frames on both routes, and both fine_dense instantiations beside the
@@ -116,18 +124,20 @@ PERIOD, ZOOM, DT, FRAMES = 4.0, 0.15, 1.0 / 60.0, 24
 #: The two frames each animation path renders and checks.
 T_FRAMES = (0.0, 23.0 / 60.0)
 
-#: Device ops per frame at commit aea80da (torch.profiler, NVIDIA H100 80GB
-#: HBM3, 700.00 W), printed beside this run's: before the coarse pass's two
-#: keyed sums became one call and expand one device op.
+#: Device ops per frame at commit 2581747 (torch.profiler, NVIDIA H100
+#: 80GB HBM3, 700.00 W), printed beside this run's: before kernel A built
+#: its item rows and gatherm its index streams and masks in their own
+#: launches.
+OPS_BEFORE_COMMIT = "2581747"
 OPS_BEFORE = {
-    "entries 1664x1664": 442, "entries 3840x2160": 442,
-    "dense 1664x1664": 459, "dense 3840x2160": 459,
-    "circles_rects_1k 1024x1024 entries": 442,
-    "circles_rects_1k 1024x1024 dense": 459,
-    "beziers_10k 1024x1024 entries": 447, "beziers_10k 1024x1024 dense": 464,
-    "glyph_page_5k 1024x1024 entries": 442,
-    "glyph_page_5k 1024x1024 dense": 459,
-    "affine tiger 1664x1664": 1380, "animated 1024x1024": 1283,
+    "entries 1664x1664": 429, "entries 3840x2160": 429,
+    "dense 1664x1664": 446, "dense 3840x2160": 446,
+    "circles_rects_1k 1024x1024 entries": 429,
+    "circles_rects_1k 1024x1024 dense": 446,
+    "beziers_10k 1024x1024 entries": 434, "beziers_10k 1024x1024 dense": 451,
+    "glyph_page_5k 1024x1024 entries": 429,
+    "glyph_page_5k 1024x1024 dense": 446,
+    "affine tiger 1664x1664": 1366, "animated 1024x1024": 1269,
 }
 
 
@@ -242,7 +252,7 @@ def profile_frames(render_one, card: str, tag: str, frames: int = 10,
     busy_us = sum(e.time_range.elapsed_us() for e in kern)
     before = OPS_BEFORE.get(tag, "not measured")
     print(f"profile {tag} [{card}]: {len(kern) / frames:.0f} device ops "
-          f"per frame (aea80da: {before}), device busy "
+          f"per frame ({OPS_BEFORE_COMMIT}: {before}), device busy "
           f"{busy_us / frames / 1e3:.3f} ms of "
           f"{wall_us / frames / 1e3:.3f} ms/frame wall (busy share "
           f"{busy_us / wall_us:.3f}, profiler on)", flush=True)
@@ -420,6 +430,10 @@ def main() -> int:
                             **coarse_kw(aff_cfg))
     torch.cuda.synchronize()
     ci_in, akw = taps["candfuse"]
+    # Kernel A's item rows and the coarse pass's call of both launches:
+    # the static tiger's, the affine tiger's and (below) beziers_10k's.
+    cand_scenes = [taps["cand_inputs"], atap["cand_inputs"]]
+    cand_caps = [cfg.max_candidates, aff_cfg.max_candidates]
     hit_args, bkw = taps["hitfuse"]
     fine_args = (entries.first, entries.n_entries,
                  _solid_to_present_u32(entries.solid), entries.stream)
@@ -427,7 +441,14 @@ def main() -> int:
                tiles_x=cfg.tiles_x)
     exp_args = atap["expand"]
     keyed_args = atap["keyed"]
+    # gatherm: the affine tiger's endpoint fetch and backdrop (a frame's
+    # calls), the static tiger's backdrop; and the generic gather on the
+    # index streams the plain versions of those calls make.
     gather_calls = atap["gatherm"]
+    assert [n for n, _ in gather_calls] == ["endpoints", "backdrop"]
+    assert [n for n, _ in taps["gatherm"]] == ["backdrop"]
+    gather_cases = gather_calls + taps["gatherm"]
+    gather_streams = [gatherm.SITES[n][2](*a) for n, a in gather_cases]
     # The same two sums as one-stream keyed_sum calls (and the library's
     # index_add_): each sum's value column, and its keys with the dropped
     # ones (out of range; past the live count for the deltas) at n_out.
@@ -490,6 +511,9 @@ def main() -> int:
         coarse.coarse_rasterize(br.prepare(bez), taps=t,
                                 **coarse_kw(br.config))
         bez_taps[bucket] = t["sort"]
+        if bucket:
+            cand_scenes.append(t["cand_inputs"])
+            cand_caps.append(br.config.max_candidates)
     gen = torch.Generator(device=dev).manual_seed(4)
 
     def random_case(n, n_keys):
@@ -534,7 +558,8 @@ def main() -> int:
     ex_n = int(ex_counts.sum())
     keyed_lib_keys = [torch.where((a[1] >= 0) & (a[1] < a[2]), a[1],
                                   a[2]).long() for a in keyed_streams]
-    gather_lib_idx = [[i.long() for i in idxs] for _, idxs in gather_calls]
+    gather_lib_idx = [[i.long() for i in idxs]
+                      for _, idxs in gather_streams[:len(gather_calls)]]
     n_ent = sort_val.shape[0]
     fine_cmds = int(entries.counts.sum())
     tile_px = cfg.tile_width * cfg.tile_height
@@ -545,9 +570,15 @@ def main() -> int:
     # a ragged source with a zero count, entries past a tile's live range,
     # values of dropped keys and gather rows no index reaches are not
     # counted.
-    ci_live = int((ci_in.counts > 0).sum())
-    cand_bytes = (row_bytes(ci_live, *ci_in[:3]) + nbytes(ci_in.total)
-                  + akw["cap"] * (32 + 3) * 4)
+    # Kernel A as the coarse pass calls it on the static tiger: the scene
+    # fields read once (seven of the eight gradient words), the item rows,
+    # counts, offsets and total written, then the candidate rows, tile and
+    # ty written (the expansion's reads of the item rows are its own
+    # output's).
+    cand_scene, cand_kw = cand_scenes[0]
+    cand_ni = cand_scene.tags.shape[0]
+    cand_bytes = (cand_ni * (25 + 32 + 2) * 4 + 4 + 4
+                  + akw["cap"] * (32 + 2) * 4)
     hit_live = int((hit_args[1] > 0).sum())
     hit_bytes = (row_bytes(hit_live, *hit_args[:3]) + nbytes(hit_args[3])
                  + bkw["cap"] * hitfuse.OUT_WORDS * 4)
@@ -569,17 +600,26 @@ def main() -> int:
                        + int((k_rec[:, hitfuse.K_NCMDS] != 0).sum())
                        + k_n_live + int((k_dval[:k_n_live] != 0).sum())
                        + 1 + 2 * k_out)
-    gather_bytes = sum(
-        row_bytes(int(torch.unique(torch.cat(idxs)).numel()), r)
-        + nbytes(*idxs) + len(idxs) * idxs[0].shape[0] * r.shape[1] * 4
-        for r, idxs in gather_calls)
+    gather_bytes = gather_call_bytes(gather_calls)
 
     table = {
         "candfuse": dict(
             route="cuda", source="piet_tpu_torch/csrc/candfuse.cu",
             replaces="piet_tpu/ops/candfuse.py:47",
-            run=lambda: candfuse.cand_records_fused(*ci_in, **akw),
-            plain=lambda: candfuse.cand_records_fused_plain(*ci_in, **akw),
+            run=lambda: sum((
+                tuple(coarse.cand_inputs(sc, **kw))
+                + _flat_stage(coarse.cand_stage(sc, cap=c, **kw))
+                for (sc, kw), c in zip(cand_scenes, cand_caps)), ())
+            + candfuse.cand_records_fused(*ci_in, **akw),
+            plain=lambda: sum((
+                tuple(coarse.cand_inputs_plain(sc, **kw))
+                + _flat_stage(plain_cand_stage(sc, c, kw))
+                for (sc, kw), c in zip(cand_scenes, cand_caps)), ())
+            + candfuse.cand_records_fused_plain(*ci_in, **akw),
+            time=lambda: coarse.cand_stage(cand_scene, cap=akw["cap"],
+                                           **cand_kw),
+            time_plain=lambda: plain_cand_stage(cand_scene, akw["cap"],
+                                                cand_kw),
             library=None,
             bytes=cand_bytes),
         "hitfuse": dict(
@@ -648,12 +688,19 @@ def main() -> int:
         "gatherm": dict(
             route="cuda", source="piet_tpu_torch/csrc/gatherm.cu",
             replaces="piet_tpu/ops/gatherm.py:52",
-            run=lambda: sum((gatherm.gather_monotone(r, i)
-                             for r, i in gather_calls), ()),
-            plain=lambda: sum((gatherm.gather_monotone_plain(r, i)
-                               for r, i in gather_calls), ()),
+            run=lambda: sum((_tuple(gatherm.SITES[n][0](*a))
+                             for n, a in gather_cases), ())
+            + sum((gatherm.gather_monotone(r, i)
+                   for r, i in gather_streams), ()),
+            plain=lambda: sum((_tuple(gatherm.SITES[n][1](*a))
+                               for n, a in gather_cases), ())
+            + sum((gatherm.gather_monotone_plain(r, i)
+                   for r, i in gather_streams), ()),
+            time=lambda: [gatherm.SITES[n][0](*a) for n, a in gather_calls],
+            time_plain=lambda: [gatherm.SITES[n][1](*a)
+                                for n, a in gather_calls],
             library=lambda: tuple(r.index_select(0, i)
-                                  for (r, _), ii in zip(gather_calls,
+                                  for (r, _), ii in zip(gather_streams,
                                                         gather_lib_idx)
                                   for i in ii),
             bytes=gather_bytes),
@@ -695,12 +742,13 @@ def main() -> int:
         print(f"kernel {name}: {n_bad} mismatching words vs plain "
               f"(tolerance 0), max abs err {err}", flush=True)
         assert n_bad == 0, f"kernel {name} disagrees with its plain version"
-    streams = [(tuple(r.shape), len(i), i[0].shape[0])
-               for r, i in gather_calls]
+    streams = [(n, tuple(r.shape), len(i), i[0].shape[0])
+               for (n, _), (r, i) in zip(gather_calls, gather_streams)]
     print(f"engine calls per frame on the affine tiger: expand 1 "
           f"{tuple(exp_args[0].shape)} -> {exp_args[2]} rows; keyed 1, two "
           f"sums of {tuple(k_rec.shape)} records ({k_n_live} live) -> 2 x "
-          f"{k_out}; gatherm (rows, streams, slots) {streams}", flush=True)
+          f"{k_out}; gatherm (site, generic rows, streams, slots) "
+          f"{streams}", flush=True)
 
     # ---- 4. the static path, bitwise against the numpy oracle ---------
     golds = {}
@@ -726,6 +774,8 @@ def main() -> int:
         assert all(v > 0 for k, v in launches.items()
                    if k not in ("expand", "fine_dense")), launches
         assert launches["keyed"] == 1, launches
+        # Kernel A one call (rows and expansion), gatherm one (backdrop).
+        assert launches["candfuse"] == launches["gatherm"] == 1, launches
 
     # ---- 4b. the dense path ----------------------------------------------
     dense_launches = {}
@@ -881,6 +931,9 @@ def main() -> int:
         assert launches["fine_dense"] == 0, launches
         assert all(v > 0 for k, v in launches.items()
                    if k != "fine_dense"), launches
+        # Per frame: kernel A one call, gatherm two (endpoints, backdrop).
+        assert launches["candfuse"] == len(T_FRAMES), launches
+        assert launches["gatherm"] == 2 * len(T_FRAMES), launches
 
     # ---- 6. timing ------------------------------------------------------
     dense_ops = {}
@@ -967,6 +1020,30 @@ def main() -> int:
               f"{k['bytes']} B, {k.get('ops', 0)} f32 ops; mean of "
               f"back-to-back calls, all of one frame's calls)", flush=True)
 
+    # Kernel A's two launches apart, and on beziers_10k's 10,000 items;
+    # gatherm's calls apart and the generic gather on their streams.
+    bez_scene, bez_kw = cand_scenes[2]
+    parts = {
+        "candfuse item rows (cand_inputs), static tiger": lambda:
+            coarse.cand_inputs(cand_scene, **cand_kw),
+        "candfuse expansion alone (cand_records_fused, tx written), static "
+        "tiger": lambda: candfuse.cand_records_fused(*ci_in, **akw),
+        "candfuse coarse pass's call, beziers_10k": lambda:
+            coarse.cand_stage(bez_scene, cap=cand_caps[2], **bez_kw),
+        "candfuse plain, beziers_10k": lambda:
+            plain_cand_stage(bez_scene, cand_caps[2], bez_kw),
+        "gatherm endpoint fetch, affine tiger": lambda:
+            gatherm.gather_endpoints(*gather_calls[0][1]),
+        "gatherm backdrop, affine tiger": lambda:
+            gatherm.backdrop_from_csum(*gather_calls[1][1]),
+        "gatherm generic gather on the affine frame's 3 streams": lambda: [
+            gatherm.gather_monotone(r, i)
+            for r, i in gather_streams[:len(gather_calls)]],
+    }
+    for what, fn in parts.items():
+        print(f"timing kernel part {what} [{card}]: "
+              f"{time_ms(fn, reps=20, warm=2):.4f} ms device", flush=True)
+
     # The device-memory route on beziers_10k's keys and on 2^20 pairs,
     # beside its plain version, torch.sort on the first key and its bound
     # (each key and val word read once and written once).
@@ -1035,6 +1112,53 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def plain_cand_stage(scene, cap, kw):
+    """The plain versions of kernel A as the coarse pass calls it: the
+    item rows, then their expansion without cand_tx."""
+    from piet_tpu_torch.ops import candfuse, coarse
+    ci = coarse.cand_inputs_plain(scene, **kw)
+    return (ci,) + candfuse.cand_records_fused_plain(
+        *ci, kw["row0"], cap, tiles_x=kw["tiles_x"])[:3]
+
+
+def _flat_stage(stage):
+    """(CandInputs, ca, cand_tile, cand_ty) -> one flat tuple."""
+    return tuple(stage[0]) + tuple(stage[1:4])
+
+
+def _tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def gather_call_bytes(calls) -> int:
+    """Least bytes of gatherm's calls on this run's data: each word a call
+    must read once (the endpoint fetch: four words of each live segment
+    row, the carried point of a wrap-around, each distinct point row
+    reached, n_segs; the backdrop: csum, three words of each candidate
+    row and its tile row), each output written once."""
+    import torch
+    from piet_tpu_torch.ops import gatherm
+    from piet_tpu_torch.scene.scene import TAG_CLIP, TAG_FILL
+    total = 0
+    for name, args in calls:
+        if name == "endpoints":
+            sitem, points, n_segs = args
+            n = int(n_segs.reshape(-1)[0])
+            _, (i0, j1) = gatherm.endpoint_streams(*args)
+            local = (torch.arange(n, device=sitem.device)
+                     - sitem[:n, gatherm.S_SEXCL])
+            tag = sitem[:n, gatherm.S_TAG]
+            wrap = (((tag == TAG_FILL) | (tag == TAG_CLIP))
+                    & (local + 1 == sitem[:n, gatherm.S_NPTS]))
+            reached = torch.unique(torch.cat([i0[:n], j1[:n][~wrap]]))
+            total += (n * 4 + int(wrap.sum()) * 2 + reached.numel() * 2
+                      + 1 + sitem.shape[0] * 4) * 4
+        else:
+            csum = args[0]
+            total += csum.shape[0] * (1 + 3 + 1 + 1) * 4
+    return total
 
 
 def _flat(sorted_out):

@@ -9,13 +9,14 @@ relative paths (``host.py`` re-exports it for scripts).  The device pass
 is ported:
 
   ops/cmd_math.py   -- per-pixel command math and exact division/sqrt
-  ops/candfuse.py   -- candidate-record expansion   (kernel A)
+  ops/candfuse.py   -- item rows + candidate expansion (kernel A)
   ops/hitfuse.py    -- hit-record expansion + tests (kernel B)
   ops/sort.py       -- stable packed-key sort       (kernel C)
   ops/fine.py       -- entry-stream interpreter     (kernel D)
   ops/expand.py     -- ragged expansion + row gather
   ops/keyed.py      -- keyed integer sums
-  ops/gatherm.py    -- row gather for K index streams
+  ops/gatherm.py    -- row gathers: K streams, segment endpoints,
+                       candidate backdrops
   ops/coarse.py     -- coarse binning -> entry stream (host-staged or
                        device-derived segment stage)
   renderer/         -- Renderer(cfg).render(scene), on "cuda" by default

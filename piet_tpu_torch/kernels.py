@@ -47,7 +47,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 #: C entry points: name -> argument types (the last one is the stream).
 _SIGNATURES = {
-    "piet_candfuse": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "piet_cand_prep": [_P] * 16 + [_I] * 6 + [_P],
+    "piet_cand_expand": [_P] * 8 + [_I] * 4 + [_P],
+    "piet_cand_stage": [_P] * 19 + [_I] * 7 + [_P],
     "piet_hitfuse": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "piet_sort": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P,
                   _P],
@@ -55,7 +57,9 @@ _SIGNATURES = {
     "piet_expand": [_P, _P, _P, _P, _I, _I, _I, _P],
     "piet_keyed": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                    _I, _P],
-    "piet_gatherm": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "piet_gather_rows": [_P] * 6 + [_I] * 4 + [_P],
+    "piet_gather_endpoints": [_P] * 5 + [_I] * 2 + [_P],
+    "piet_gather_backdrop": [_P] * 4 + [_I, _P],
     "piet_fine_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 

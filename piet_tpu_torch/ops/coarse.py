@@ -3,25 +3,25 @@
 Port of ``piet_tpu/ops/coarse.py::coarse_rasterize``: the segment stage --
 host-staged (``seg_pre``, renderer/segstage.py) or derived on the device
 from the scene's points (``seg_pre=None``, the device-animation path:
-:func:`derive_seg_stage`) -- then the fused-record route: kernel A
-(candidate expansion), kernel B (hit records), keyed sums, the backdrop
-prefix, the candidate tail commands, one stable sort (kernel C) and the
-sorted gather.  ``output="entries"`` then adds the ``W_RUN`` run words,
-per-tile ranges and the bail; ``output="dense"`` scatters the records
-into (T, CAP) command lists (:func:`_dense_ptcl`).  Both outputs are word
-for word the JAX pass's (tests/test_torch_coarse.py,
-tests/test_torch_dense.py).
+:func:`derive_seg_stage`) -- then the fused-record route: kernel A (the
+item rows and their candidate expansion), kernel B (hit records), keyed
+sums, the backdrop prefix, the candidate tail commands, one stable sort
+(kernel C) and the sorted gather.  ``output="entries"`` then adds the
+``W_RUN`` run words, per-tile ranges and the bail; ``output="dense"``
+scatters the records into (T, CAP) command lists (:func:`_dense_ptcl`).
+Both outputs are word for word the JAX pass's
+(tests/test_torch_coarse.py, tests/test_torch_dense.py).
 
 The fused route is taken for every scene: the JAX package gates it on by
 a record count measured on the TPU, but the fused and staged routes are
 bitwise identical, so the port drops the gate.  The same holds for the
 JAX pass's optional engines: the port always takes ``expand_rows``
-(ops/expand.py), the keyed sums (ops/keyed.py) and ``gather_monotone``
-(ops/gatherm.py), in both branches.  Where the packed sort key
-``tile * 2*(NI+1) + item*2 + class`` would reach 2^24 (inexact in f32), the
-sort takes two keys, (tile, item*2 + class), as the JAX pass does.  Entry
-pairing is not ported: it raises ``NotImplementedError`` naming its
-ROADMAP.md item.
+(ops/expand.py), the keyed sums (ops/keyed.py) and the row gather
+(ops/gatherm.py: the endpoint fetch and the backdrop, each one call), in
+both branches.  Where the packed sort key ``tile * 2*(NI+1) + item*2 +
+class`` would reach 2^24 (inexact in f32), the sort takes two keys,
+(tile, item*2 + class), as the JAX pass does.  Entry pairing is not
+ported: it raises ``NotImplementedError`` naming its ROADMAP.md item.
 
 Bit patterns: candidate rows, segment rows, the bail colour and the entry
 rows travel as int32.  Colours are NaN patterns as f32 and several words
@@ -36,6 +36,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .. import kernels
 from ..layout.entry_stream import (ENTRY_WORDS, META_CLEAR_BIT,
                                    META_NCMDS_MASK, META_OPAQUE_BIT,
                                    N_S0_ARGS, N_S1_ARGS, RUN_CAP, W_BAIL,
@@ -50,10 +51,11 @@ from ..scene.scene import (FLAG_BRUSH_LINEAR, FLAG_BRUSH_RADIAL,
                            FLAG_FILL_CONT, FLAG_FILL_FINAL, FLAG_IN_GROUP,
                            FLAG_POP_LAYER, TAG_CIRCLE, TAG_CLIP, TAG_FILL,
                            TAG_LAYER, TAG_LINE, TAG_POLY, TAG_POP)
-from .candfuse import cand_records_fused
+from .candfuse import (SCENE_FIELDS, cand_prep, cand_prep_expand,
+                       cand_records_fused_plain)
 from .cmd_math import _f, div_det, dot2_det
 from .expand import expand_rows
-from .gatherm import gather_monotone
+from .gatherm import backdrop_from_csum, gather_endpoints
 from .hitfuse import hit_records_fused, split_fused
 from .keyed import record_keyed_sums
 from .sort import stable_sort_multi
@@ -163,12 +165,30 @@ class CandInputs(NamedTuple):
     total: torch.Tensor       # (1,) int32
 
 
+def _scene_on_cuda(scene: DeviceScene) -> bool:
+    return kernels.on_cuda(*(getattr(scene, f) for f, _, _ in SCENE_FIELDS),
+                           scene.n_items)
+
+
 def cand_inputs(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
                 tile_w: int, tile_h: int, row0: int = 0) -> CandInputs:
     """Per-item candidate rows: colours, bbox, half width, colour bits,
     flags, clip rect, the packed item ints, the item id and the gradient
     payload -- every attribute the tail commands need rides one
-    expansion."""
+    expansion.  On the card one call of kernel A's ``cand_prep``
+    (``candfuse.cand_prep``), else :func:`cand_inputs_plain`."""
+    kw = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w,
+              tile_h=tile_h, row0=row0)
+    if not _scene_on_cuda(scene):
+        return cand_inputs_plain(scene, **kw)
+    return CandInputs(*cand_prep(scene, **kw))
+
+
+def cand_inputs_plain(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
+                      tile_w: int, tile_h: int,
+                      row0: int = 0) -> CandInputs:
+    """Plain PyTorch version of :func:`cand_inputs` (the JAX pass's glue,
+    ``piet_tpu/ops/coarse.py:324-346``)."""
     NI = scene.tags.shape[0]
     dev = scene.tags.device
     item_ids = torch.arange(NI, dtype=I32, device=dev)
@@ -187,6 +207,25 @@ def cand_inputs(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
          item_pack, item_ids[:, None], _bits(scene.grads[:, :7])],
         dim=1).contiguous()
     return CandInputs(cand_pack, counts, excl, incl[-1:].clone())
+
+
+def cand_stage(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
+               tile_w: int, tile_h: int, row0: int, cap: int):
+    """Kernel A as the coarse pass runs it: the item rows
+    (:func:`cand_inputs`) and their expansion into ``cap`` candidate
+    records (``candfuse.cand_records_fused`` without ``cand_tx``).  On the
+    card one call (``candfuse.cand_prep_expand``), the expansion a
+    programmatic dependent launch behind the rows.  Returns (CandInputs,
+    ca, cand_tile, cand_ty)."""
+    kw = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w,
+              tile_h=tile_h, row0=row0)
+    if _scene_on_cuda(scene):
+        rows, ca, tile, ty = cand_prep_expand(scene, cap=cap, **kw)
+        return CandInputs(*rows), ca, tile, ty
+    ci = cand_inputs_plain(scene, **kw)
+    ca, tile, ty, _ = cand_records_fused_plain(*ci, row0, cap,
+                                               tiles_x=tiles_x)
+    return ci, ca, tile, ty
 
 
 def derive_seg_stage(scene: DeviceScene, item_pack: torch.Tensor, *,
@@ -231,29 +270,21 @@ def derive_seg_stage(scene: DeviceScene, item_pack: torch.Tensor, *,
     sitem_f = sitem.view(F32)
     seg_idx = torch.arange(max_segments, dtype=I32, device=dev)
     seg_valid = seg_idx < n_segs
-    seg_local = seg_idx - sitem[:, 10]
     seg_item = sitem[:, 11]
-    s_tag, s_npts, s_ptoff, s_cand_excl = (sitem[:, 0], sitem[:, 1],
-                                           sitem[:, 2], sitem[:, 3])
+    s_tag, s_cand_excl = sitem[:, 0], sitem[:, 3]
     s_bx0, s_by0, s_bx1, s_by1, s_bw = (sitem[:, 4], sitem[:, 5],
                                         sitem[:, 6], sitem[:, 7],
                                         sitem[:, 8])
-    i0 = s_ptoff + seg_local
     s_is_fill_tag = (s_tag == TAG_FILL) | (s_tag == TAG_CLIP)
-    wrap = s_is_fill_tag & (seg_local + 1 == s_npts)
-    # Endpoints: i0 and i0 + 1 are nondecreasing across live segments;
-    # the one non-monotone endpoint, the fill wrap-around, comes from the
-    # carried first point.  Dead slots pin to np_max.  (The JAX package
-    # refuses the expand and gatherm engines in one executable: a
-    # workaround for an XLA:TPU miscompile, with no CUDA counterpart.)
-    i0_g = torch.where(seg_valid, torch.clamp(i0, 0, np_max), np_max)
-    j1_g = torch.where(seg_valid, torch.clamp(i0 + 1, 0, np_max), np_max)
+    # Endpoints, one gatherm call: points at i0 = pt_offset + (slot - the
+    # item's first slot) and i0 + 1, the fill wrap-around from the carried
+    # first point, +0.0 on dead slots.  (The JAX package refuses the
+    # expand and gatherm engines in one executable: a workaround for an
+    # XLA:TPU miscompile, with no CUDA counterpart.)
     if taps is not None:
-        taps.setdefault("gatherm", []).append((scene.points, (i0_g, j1_g)))
-    p0e, p1n = gather_monotone(scene.points, (i0_g, j1_g))
-    p1e = torch.where(wrap[:, None], sitem_f[:, 12:14], p1n)
-    p0 = torch.where(seg_valid[:, None], p0e, 0.0)
-    p1 = torch.where(seg_valid[:, None], p1e, 0.0)
+        taps.setdefault("gatherm", []).append(
+            ("endpoints", (sitem, scene.points, n_segs)))
+    p0, p1 = gather_endpoints(sitem, scene.points, n_segs)
     sx, sy = p0[:, 0], p0[:, 1]
     ex, ey = p1[:, 0], p1[:, 1]
     a = ey - sy
@@ -359,10 +390,13 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
     the JAX pass's dense output does.
 
     ``taps``: optional dict that receives each kernel's inputs (keys
-    "candfuse", "hitfuse", "sort" -- the keys tuple, the values and the
-    key bounds; "keyed" -- the hit records, their live count and n_out;
-    "gatherm" as a list of calls; "expand" on the device-derived segment
-    stage) -- for tests and chip_smoke.py.
+    "cand_inputs" -- the scene and the rect keywords of kernel A's item
+    rows; "candfuse" -- the rows and the expansion's keywords;
+    "hitfuse", "sort" -- the keys tuple, the values and the key bounds;
+    "keyed" -- the hit records, their live count and n_out; "gatherm" --
+    a list of (site, arguments) of ``gatherm.SITES``, one a call;
+    "expand" on the device-derived segment stage) -- for tests and
+    chip_smoke.py.
     """
     if output not in ("entries", "dense"):
         raise ValueError(f"unknown coarse output {output!r}")
@@ -382,16 +416,16 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
     E = max_hits + max_candidates
     assert E % 128 == 0 and E < 2 ** 24, "entry capacity"
 
-    # ---- candidate expansion (kernel A) --------------------------------
-    ci_in = cand_inputs(scene, tiles_x=tiles_x, tiles_y=tiles_y,
-                        tile_w=tile_w, tile_h=tile_h, row0=row0)
+    # ---- candidate rows and their expansion (kernel A) -----------------
+    rect_kw = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w,
+                   tile_h=tile_h, row0=row0)
+    ci_in, ca, cand_tile, cand_ty = cand_stage(scene, cap=max_candidates,
+                                               **rect_kw)
     n_cand = ci_in.total
     if taps is not None:
+        taps["cand_inputs"] = (scene, rect_kw)
         taps["candfuse"] = (ci_in, dict(row0=row0, cap=max_candidates,
                                         tiles_x=tiles_x))
-    ca, cand_tile, cand_ty, _ = cand_records_fused(
-        ci_in.cand_pack, ci_in.counts, ci_in.excl, n_cand, row0,
-        max_candidates, tiles_x=tiles_x)
     ca_i = _bits(ca)
     cf = ca[:, :15]
     ci = ca_i[:, 15:24]
@@ -442,18 +476,13 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
                            torch.clamp(d_y_hi - d_y_lo + 1, min=0), 0).sum()
     # Per-(item, row) prefix along tx: candidates are row-major per item,
     # so subtract the running total at each row start.
+    # One gatherm call: csum less csum at the slot before each
+    # candidate's row start.
     csum = torch.cumsum(delta_scatter, 0)
-    cand_row_start = ci[:, 3] + (cand_ty - ci[:, 5]) * torch.clamp(
-        ci[:, 8], min=1)
-    # cand_row_start is nondecreasing (candidates expand item- and
-    # row-major), so the row-start base is a monotone gather.
-    sb_idx = torch.clamp(cand_row_start - 1, 0, max_candidates - 1)
-    csum_rows = csum[:, None]
-    (sb,) = gather_monotone(csum_rows, (sb_idx,))
-    start_base = torch.where(cand_row_start > 0, sb[:, 0], 0.0)
     if taps is not None:
-        taps.setdefault("gatherm", []).append((csum_rows, (sb_idx,)))
-    backdrop = csum - start_base
+        taps.setdefault("gatherm", []).append(
+            ("backdrop", (csum, ca_i, cand_ty)))
+    backdrop = backdrop_from_csum(csum, ca_i, cand_ty)
 
     # ---- candidate tail commands ---------------------------------------
     c_tag_item = ci[:, 0]

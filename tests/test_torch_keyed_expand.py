@@ -45,7 +45,7 @@ from piet_tpu_torch.scene import animate  # noqa: E402
 from piet_tpu_torch.scene.svg import make_tiger  # noqa: E402
 from _engine_cases import (EXPAND_CASES, EXPAND_WORDS,  # noqa: E402
                            KEYED_SYNTH, expand_rows_case,
-                           keyed_synth_case)
+                           keyed_synth_case, warp_search)
 
 
 def _u32(x):
@@ -166,26 +166,6 @@ def test_coarse_pass_taps_one_keyed_call():
 
 # ---- expand: the kernel's block schedule on the CPU ---------------------
 
-def _warp_search(incl, n_src, p):
-    """owner_search.cuh::warp_search: 32 probes a step, the first probe
-    that exceeds p picks the next range (a ballot and ffs on the card).
-    Returns (answer, steps)."""
-    lo, hi, steps = 0, n_src, 0
-    lanes = np.arange(32)
-    while lo < hi:
-        steps += 1
-        step = (hi - lo + 31) // 32
-        q = lo + lanes * step
-        gt = (q >= hi) | (incl[np.minimum(q, n_src - 1)] > p)
-        f = int(np.argmax(gt)) if gt.any() else 32
-        if f == 0:
-            break
-        lo = lo + (f - 1) * step + 1
-        if f < 32:
-            hi = min(hi, lo + step - 1)
-    return lo, steps
-
-
 def _emulate_expand(rows, counts, cap, excl):
     """csrc/expand.cu on the CPU, block by block."""
     bits = np.ascontiguousarray(rows).view(np.int32)
@@ -202,8 +182,8 @@ def _emulate_expand(rows, counts, cap, excl):
         if p0 >= total:                         # dead block: zeros
             out[start:start + n_words] = 0
             continue
-        span0, steps0 = _warp_search(incl, n_src, p0)
-        span1, steps1 = _warp_search(incl, n_src,
+        span0, steps0 = warp_search(incl, n_src, p0)
+        span1, steps1 = warp_search(incl, n_src,
                                      min(p0 + n_slot, total) - 1)
         # Each step leaves a 32nd of the range.
         assert max(steps0, steps1) <= 1 + int(np.ceil(np.log(n_src + 1)
