@@ -63,6 +63,17 @@ and exits non-zero:
      arrays, bitwise, with no capacity overflow; all seven kernels of the
      entries route must have run, candfuse once a frame and gatherm
      twice (the endpoint fetch and the backdrop);
+  5b. the graphs: every entry point replays a captured CUDA graph
+     (renderer/graph.py), so phases 4-5 already ran through them; here
+     each replayed frame is held against the eager frame (render_device:
+     render_slab op by op) and the numpy oracle, 0 pixels off each: the
+     static tiger at 1664^2 and 3840x2160 and the three BASELINE scenes
+     (two replays in a row each; beziers_10k's sort on the device-memory
+     route), both routes; the affine tiger and the animated fixture at
+     both t, both routes; a 3-frame render_sequence (one graph) and
+     render_updated after moved points, both routes; ResizableRenderer
+     at two viewports with n_compiles() == 1; and the device memory of
+     the 3840x2160 frame graph and the sequence graph;
   6. timing with CUDA events: ms/frame on every path (both routes of the
      static tiger), device ms with the launch overhead hidden, a
      torch.profiler trace (device-busy share and top device ops, and the
@@ -74,7 +85,14 @@ and exits non-zero:
      route on beziers_10k's keys (both sizes) and on 2^20 pairs beside
      its plain version, torch.sort and its bound, the three BASELINE
      frames on both routes, and both fine_dense instantiations beside the
-     device ops of a dense frame.
+     device ops of a dense frame.  Every timed cell (the static tiger
+     and BASELINE frames on both routes, both animations on both routes,
+     a 3-frame sequence) is also timed graphed beside eager: latency,
+     throughput, device ms, host calls (the profiler's enqueueing CUDA
+     calls), device ops and busy ms per frame, busy share, and each of
+     the port's kernels' ms per frame in both; and kernel A's call and
+     both sort routes (programmatic dependent and cluster launches) are
+     each replayed alone from a graph beside their eager time.
 
 The line before the last is the kernel table as JSON, each kernel with
 the path whose run gave its launch count (and, under "paths", every path
@@ -87,6 +105,7 @@ present.
 import itertools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -230,11 +249,50 @@ def row_bytes(n_rows: int, *tensors) -> int:
     return n_rows * sum(t[0].numel() * t.element_size() for t in tensors)
 
 
-def profile_frames(render_one, card: str, tag: str, frames: int = 10,
-                   top: int = 8) -> float:
-    """Trace ``frames`` frames with torch.profiler; print the device-busy
-    share and the ``top`` device ops by time per frame; return the device
-    ops per frame."""
+#: CUDA API calls (``cuda*`` and ``cu*``) that enqueue work on a stream:
+#: what the host pays per frame ("host calls per frame").
+HOST_CALL = re.compile(r"^cu(da)?(LaunchKernel|LaunchCooperativeKernel|"
+                       r"GraphLaunch|Memcpy|Memset)")
+
+#: The port's kernels (csrc/*.cu) by function name, and the memsets of
+#: keyed and the sort, as a profiler trace names them.
+OUR_KERNELS = ("cand_count", "cand_prep", "cand_expand", "hitfuse_kernel",
+               "sort_cluster", "sort_upsweep", "sort_pass",
+               "fine_entries_kernel", "tile_order", "fine_dense_kernel",
+               "expand_kernel", "keyed_kernel", "gather_endpoints",
+               "gather_rows", "backdrop", "Memset")
+
+
+def kernel_name(name: str) -> str:
+    """A trace's kernel name without namespace, return type and
+    arguments: "fine_entries_kernel<8>"."""
+    name = name.replace("(anonymous namespace)::", "")
+    return name.removeprefix("void ").split("(")[0].strip()
+
+
+def replay_of(fn):
+    """``fn`` (device work only) captured in a CUDA graph after one warm-up
+    call on a side stream; returns the graph's replay.  The launches of
+    the warm-up and the capture are kept out of kernels.LAUNCHES."""
+    import torch
+    from piet_tpu_torch import kernels
+    with kernels.launches_apart():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+    return graph.replay
+
+
+def trace_frames(render_one, frames: int = 10) -> dict:
+    """torch.profiler over ``frames`` warm calls of ``render_one``: per
+    frame, the device ops, the host's enqueueing CUDA calls, the device
+    busy ms (summed kernel, copy and fill time), the wall ms (profiler on)
+    and each device op name's (launches, ms)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -248,23 +306,119 @@ def profile_frames(render_one, card: str, tag: str, frames: int = 10,
             render_one()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = prof.events()
+    kern = [e for e in events if e.device_type == DeviceType.CUDA]
+    calls = sum(1 for e in events if e.device_type == DeviceType.CPU
+                and HOST_CALL.match(e.name))
     busy_us = sum(e.time_range.elapsed_us() for e in kern)
-    before = OPS_BEFORE.get(tag, "not measured")
-    print(f"profile {tag} [{card}]: {len(kern) / frames:.0f} device ops "
-          f"per frame ({OPS_BEFORE_COMMIT}: {before}), device busy "
-          f"{busy_us / frames / 1e3:.3f} ms of "
-          f"{wall_us / frames / 1e3:.3f} ms/frame wall (busy share "
-          f"{busy_us / wall_us:.3f}, profiler on)", flush=True)
     by_name = {}
     for e in kern:
         n, us = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
-    for name, (n, us) in sorted(by_name.items(),
+    return dict(ops=len(kern) / frames, host_calls=calls / frames,
+                busy_ms=busy_us / frames / 1e3,
+                wall_ms=wall_us / frames / 1e3, share=busy_us / wall_us,
+                by_name={k: (n / frames, us / frames / 1e3)
+                         for k, (n, us) in by_name.items()})
+
+
+def profile_frames(render_one, card: str, tag: str, frames: int = 10,
+                   top: int = 8) -> dict:
+    """Trace ``frames`` frames with torch.profiler; print the device-busy
+    share and the ``top`` device ops by time per frame; return the
+    trace's numbers (:func:`trace_frames`)."""
+    tr = trace_frames(render_one, frames)
+    before = OPS_BEFORE.get(tag, "not measured")
+    print(f"profile {tag} [{card}]: {tr['ops']:.0f} device ops "
+          f"per frame ({OPS_BEFORE_COMMIT}: {before}), {tr['host_calls']:.0f}"
+          f" host calls per frame, device busy {tr['busy_ms']:.3f} ms of "
+          f"{tr['wall_ms']:.3f} ms/frame wall (busy share "
+          f"{tr['share']:.3f}, profiler on)", flush=True)
+    for name, (n, ms) in sorted(tr["by_name"].items(),
                                 key=lambda kv: -kv[1][1])[:top]:
-        print(f"  {us / frames / 1e3:.4f} ms/frame in {n / frames:.0f} "
-              f"launches: {name[:90]}", flush=True)
-    return len(kern) / frames
+        print(f"  {ms:.4f} ms/frame in {n:.0f} launches: {name[:90]}",
+              flush=True)
+    return tr
+
+
+def graph_cell(card: str, tag: str, eager, graphed,
+               frames_per_call: int = 1) -> dict:
+    """One timed cell, the graphed frame beside the eager one: latency
+    (median of 20 calls, CUDA events per call, host launch included),
+    throughput (host clock around 20 back-to-back calls), device ms (5
+    calls behind a GPU spin), host calls, device ops and busy ms per frame
+    and the busy share (torch.profiler, 10 calls); then the port's
+    kernels' ms per frame in each.  A call of
+    ``eager``/``graphed`` renders ``frames_per_call`` frames."""
+    k = frames_per_call
+    res = {}
+    for mode, fn in (("graphed", graphed), ("eager", eager)):
+        tr = trace_frames(fn)
+        res[mode] = dict(latency=frame_ms(fn, reps=20) / k,
+                         wall=wall_ms(fn) / k,
+                         device=time_ms(fn, reps=5, spin=8 * SPIN_CYCLES) / k,
+                         host_calls=tr["host_calls"] / k,
+                         ops=tr["ops"] / k, busy=tr["busy_ms"] / k,
+                         share=tr["share"], by_name=tr["by_name"])
+    g, e = res["graphed"], res["eager"]
+    print(f"cell {tag} [{card}], graphed / eager: latency {g['latency']:.3f}"
+          f" / {e['latency']:.3f} ms/frame; throughput {g['wall']:.3f} / "
+          f"{e['wall']:.3f} ms/frame ({1e3 / g['wall']:.1f} / "
+          f"{1e3 / e['wall']:.1f} frames/s); host calls per frame "
+          f"{g['host_calls']:.1f} / {e['host_calls']:.1f}; device ops per "
+          f"frame {g['ops']:.0f} / {e['ops']:.0f}; device busy "
+          f"{g['busy']:.3f} / {e['busy']:.3f} ms/frame; device ms behind a "
+          f"spin {g['device']:.3f} / {e['device']:.3f}; busy share "
+          f"{g['share']:.3f} / {e['share']:.3f} (profiler on)", flush=True)
+    ours = sorted({n for m in res.values() for n in m["by_name"]
+                   if kernel_name(n).split("<")[0] in OUR_KERNELS})
+    parts = []
+    for n in ours:
+        ms = [res[m]["by_name"].get(n, (0, 0.0))[1] / k
+              for m in ("graphed", "eager")]
+        parts.append(f"{kernel_name(n)} {ms[0]:.4f} / {ms[1]:.4f}")
+    print(f"  kernels in cell {tag} [{card}], ms/frame graphed / eager: "
+          + "; ".join(parts), flush=True)
+    return res
+
+
+def rgba(img) -> "np.ndarray":
+    """(..., H, W) int32 RGBA8 bits on any device -> uint8 (..., H, W, 4)."""
+    import numpy as np
+    a = np.ascontiguousarray(img.cpu().numpy())
+    return a.view(np.uint8).reshape(*a.shape, 4)
+
+
+def graph_check(tag: str, graphed, eager, gold) -> None:
+    """A graphed frame (uint8 RGBA) against the eager frame and the numpy
+    oracle's: pixels that differ, tolerance 0."""
+    n_eager = int((graphed != eager).any(-1).sum())
+    n_gold = int((graphed != gold).any(-1).sum())
+    print(f"graph {tag}: {n_eager} pixels differ from the eager frame, "
+          f"{n_gold} from the numpy oracle", flush=True)
+    assert graphed.shape == eager.shape == gold.shape, tag
+    assert n_eager == 0 and n_gold == 0, f"graph {tag} differs"
+
+
+def pool_line(card: str, tag: str, build) -> None:
+    """Print the device memory that ``build`` (a first call, which captures
+    a graph) peaks at and the memory its graph keeps reserved."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    alloc0 = torch.cuda.memory_allocated()
+    res0 = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    build()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - alloc0
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved() - res0
+    print(f"memory {tag} [{card}]: peak {peak / 2**20:.1f} MiB allocated "
+          f"above the {alloc0 / 2**20:.1f} MiB before (warm-up, capture, "
+          f"replay); {held / 2**20:.1f} MiB reserved after, held by the "
+          f"graph's private pool (torch.cuda.max_memory_allocated, "
+          f"memory_reserved)", flush=True)
 
 
 def affine_tiger(scene, dev, fine_impl="entries"):
@@ -303,7 +457,7 @@ def affine_tiger(scene, dev, fine_impl="entries"):
     return cfg, render_t, scene.n_items, scene.n_points
 
 
-def animated_fixture(dev):
+def animated_fixture(dev, fine_impl="entries"):
     """BASELINE config 5: the animated fixture at 1024^2 (n=200, seed 5),
     capacities fitted over 4 host-built frames of the 24-frame sweep (the
     JAX package's `animate`)."""
@@ -325,7 +479,8 @@ def animated_fixture(dev):
             max_candidates=max(cfg.max_candidates, c.max_candidates),
             max_deltas=max(cfg.max_deltas, c.max_deltas),
             cmd_capacity=max(cfg.cmd_capacity, c.cmd_capacity))
-    render_t, tmpl = animate.make_animated_render_fn(cfg, device=dev)
+    render_t, tmpl = animate.make_animated_render_fn(cfg, device=dev,
+                                                    fine_impl=fine_impl)
     return cfg, render_t, tmpl.n_items, tmpl.n_points
 
 
@@ -861,7 +1016,7 @@ def main() -> int:
         assert launches["sort"] == 1, launches
 
     # ---- 4d. the BASELINE scenes at 1024^2 -----------------------------
-    baseline = {}
+    baseline, baseline_gold = {}, {}
     for name, fixture in (("circles_rects_1k", "circles_rects"),
                           ("beziers_10k", "beziers_10k"),
                           ("glyph_page_5k", "glyph_page")):
@@ -888,6 +1043,7 @@ def main() -> int:
             assert launches["sort"] == 1 and launches[
                 "fine" if impl == "entries" else "fine_dense"] == 1, launches
             baseline[name, impl] = (r, sc, launches)
+        baseline_gold[name] = gold
         if name == "beziers_10k":
             k, v, b = bez_taps[True]
             assert v.shape[0] == n_pairs
@@ -895,7 +1051,7 @@ def main() -> int:
             assert plan.cluster == 0, plan
 
     # ---- 5. the device-animation paths ---------------------------------
-    anim_launches = {}
+    anim_launches, anim_golds = {}, {}
     for tag, c, render_t, ni, npts in (
             ("affine tiger 1664x1664", aff_cfg, aff_render, aff_ni, aff_np),
             ("animated 1024x1024", anim_cfg, anim_render, anim_ni,
@@ -913,7 +1069,7 @@ def main() -> int:
                                                            c.width, 4)
             frame = fetch_scene(render_t.scene_at(t), ni, npts)
             t0 = time.perf_counter()
-            gold = cpu_render_scene(frame, c)
+            gold = anim_golds[tag, t] = cpu_render_scene(frame, c)
             t_gold = time.perf_counter() - t0
             n_bad = int((got != gold).any(-1).sum())
             over = {k: stats[k] for k in ("seg_overflow", "hit_overflow",
@@ -934,6 +1090,77 @@ def main() -> int:
         # Per frame: kernel A one call, gatherm two (endpoints, backdrop).
         assert launches["candfuse"] == len(T_FRAMES), launches
         assert launches["gatherm"] == 2 * len(T_FRAMES), launches
+
+    # ---- 5b. the graphs: every entry point's replayed frame against the
+    # eager frame (render_device / render_slab, op by op) and the oracle --
+    import dataclasses
+
+    from piet_tpu_torch.renderer.renderer import (make_render_fn,
+                                                  make_render_sequence_fn,
+                                                  stack_scenes)
+    from piet_tpu_torch.renderer.resize import ResizableRenderer
+    for impl, (w, h) in itertools.product(("entries", "dense"),
+                                          ((1664, 1664), (3840, 2160))):
+        r = Renderer.for_scene(scene, w, h, tile_height=32, tile_width=128,
+                               device=dev, fine_impl=impl)
+        if (w, h) == (3840, 2160):
+            pool_line(card, f"frame graph {impl} {w}x{h}",
+                      lambda: r.render_u32(scene))
+        graph_check(f"static tiger {w}x{h} {impl}", rgba(r.render_u32(scene)),
+                    rgba(r.render_device(r.prepare(scene))[0]), golds[w, h])
+    for (name, impl), (r, sc, _) in baseline.items():
+        eager = rgba(r.render_device(r.prepare(sc))[0])
+        # Two replays in a row (beziers_10k: the sort's counter memset and
+        # keyed's, each replay's own).
+        for k in (1, 2):
+            graph_check(f"{name} 1024x1024 {impl}, replay {k}",
+                        rgba(r.render_u32(sc)), eager, baseline_gold[name])
+    anim_dense = animated_fixture(dev, fine_impl="dense")[1]
+    for tag, c, fns in (
+            ("affine tiger 1664x1664", aff_cfg,
+             {"entries": aff_render, "dense": aff_dense}),
+            ("animated 1024x1024", anim_cfg,
+             {"entries": anim_render, "dense": anim_dense})):
+        for (impl, render_t), t in itertools.product(fns.items(), T_FRAMES):
+            eager = Renderer(c, dev, fine_impl=impl).render_device(
+                render_t.scene_at(t))[0]
+            graph_check(f"{tag} t={t:.4f} {impl}", rgba(render_t(t)[0]),
+                        rgba(eager), anim_golds[tag, t])
+    seq_frames = [make_animated_frame(k * 4 * DT) for k in range(3)]
+    seq_golds = [cpu_render_scene(f, anim_cfg) for f in seq_frames]
+    moved = dataclasses.replace(seq_frames[0],
+                                points=seq_frames[0].points + 2.0,
+                                bboxes=seq_frames[0].bboxes + 2)
+    moved_gold = cpu_render_scene(moved, anim_cfg)
+    for impl in ("entries", "dense"):
+        ar = Renderer(anim_cfg, dev, fine_impl=impl)
+        if impl == "entries":
+            pool_line(card, "sequence graph entries animated 1024x1024, 3 "
+                      "frames", lambda: ar.render_sequence(seq_frames))
+        seq = ar.render_sequence(seq_frames)
+        for i, f in enumerate(seq_frames):
+            graph_check(f"render_sequence frame {i} of 3, animated fixture "
+                        f"1024x1024 {impl}", seq[i],
+                        rgba(ar.render_device(ar.prepare(f))[0]),
+                        seq_golds[i])
+        ar.render_u32(seq_frames[0])
+        graph_check(f"render_updated (points moved), animated fixture "
+                    f"1024x1024 {impl}", rgba(ar.render_updated(moved)),
+                    rgba(ar.render_device(ar.prepare(moved))[0]), moved_gold)
+        assert ar._render.n_graphs() == 1
+    rr = ResizableRenderer.for_scene(scene, 1664, 1664, device=dev,
+                                     tile_height=32, tile_width=128)
+    for w, h in ((1664, 1664), (1280, 960)):
+        vr = Renderer.for_scene(scene, w, h, tile_height=32, tile_width=128,
+                                device=dev)
+        gold = (golds[w, h] if (w, h) in golds
+                else cpu_render_scene(scene, vr.config))
+        graph_check(f"ResizableRenderer tiger {w}x{h} of 1664x1664",
+                    rr.render(scene, w, h),
+                    rgba(vr.render_device(vr.prepare(scene))[0]), gold)
+    print(f"ResizableRenderer: n_compiles() = {rr.n_compiles()} after 2 "
+          f"viewports", flush=True)
+    assert rr.n_compiles() == 1
 
     # ---- 6. timing ------------------------------------------------------
     dense_ops = {}
@@ -973,9 +1200,13 @@ def main() -> int:
               f"CUDA events per frame); pipelined wall {wall:.3f} ms/frame; "
               f"device {frame_dev:.3f} ms/frame; coarse {t_coarse:.3f} ms, "
               f"fine {t_fine:.3f} ms", flush=True)
-        ops = profile_frames(lambda: r.render_device(d), card, tag)
+        ops = profile_frames(lambda: r.render_device(d), card, tag)["ops"]
         if impl == "dense":
             dense_ops[w, h] = ops
+        step = make_render_fn(r.config, dev, impl)
+        ds = step.stage(d)
+        graph_cell(card, f"static tiger {tag}", lambda: r.render_device(d),
+                   lambda: step(ds))
 
     for (name, impl), (r, sc, _) in baseline.items():
         d = r.prepare(sc)
@@ -989,18 +1220,43 @@ def main() -> int:
               f"device {frame_dev:.3f} ms/frame; {sc.n_items} items",
               flush=True)
         profile_frames(lambda: r.render_device(d), card, tag)
+        step = make_render_fn(r.config, dev, impl)
+        ds = step.stage(d)
+        graph_cell(card, tag, lambda: r.render_device(d), lambda: step(ds))
 
-    for tag, render_t in (("affine tiger 1664x1664", aff_render),
-                          ("animated 1024x1024", anim_render)):
+    for tag, c, render_t in (
+            ("affine tiger 1664x1664", aff_cfg, aff_render),
+            ("animated 1024x1024", anim_cfg, anim_render),
+            ("affine tiger 1664x1664 dense", aff_cfg, aff_dense),
+            ("animated 1024x1024 dense", anim_cfg, anim_dense)):
         t = T_FRAMES[1]
-        frame = frame_ms(lambda: render_t(t), reps=20)
-        frame_dev = time_ms(lambda: render_t(t), reps=5,
-                            spin=16 * SPIN_CYCLES)
-        wall = wall_ms(lambda: render_t(t))
-        print(f"timing {tag} [{card}]: {frame:.3f} ms/frame (median of 20, "
-              f"CUDA events per frame); pipelined wall {wall:.3f} ms/frame; "
-              f"device {frame_dev:.3f} ms/frame", flush=True)
-        profile_frames(lambda: render_t(t), card, tag)
+        er = Renderer(c, dev, fine_impl="dense" if "dense" in tag
+                      else "entries")
+
+        def eager_t():
+            return er.render_device(render_t.scene_at(t))
+
+        if "dense" not in tag:
+            # The eager frame op by op (render_t itself replays a graph).
+            frame = frame_ms(eager_t, reps=20)
+            frame_dev = time_ms(eager_t, reps=5, spin=16 * SPIN_CYCLES)
+            wall = wall_ms(eager_t)
+            print(f"timing {tag} [{card}]: {frame:.3f} ms/frame (median of "
+                  f"20, CUDA events per frame); pipelined wall {wall:.3f} "
+                  f"ms/frame; device {frame_dev:.3f} ms/frame", flush=True)
+            profile_frames(eager_t, card, tag)
+        graph_cell(card, tag, eager_t, lambda: render_t(t))
+
+    # A 3-frame sequence: one replay of the sequence graph against three
+    # eager frames.
+    for impl in ("entries", "dense"):
+        seq_fn = make_render_sequence_fn(anim_cfg, dev, impl)
+        staged = seq_fn.stage(stack_scenes(seq_frames, anim_cfg, dev))
+        er = Renderer(anim_cfg, dev, fine_impl=impl)
+        singles = [er.prepare(f) for f in seq_frames]
+        graph_cell(card, f"render_sequence 3 frames animated 1024x1024 "
+                   f"{impl}", lambda: [er.render_device(x) for x in singles],
+                   lambda: seq_fn(staged), frames_per_call=3)
 
     for name, k in table.items():
         k["ms"] = time_ms(k.get("time", k["run"]), reps=20, warm=2)
@@ -1043,6 +1299,25 @@ def main() -> int:
     for what, fn in parts.items():
         print(f"timing kernel part {what} [{card}]: "
               f"{time_ms(fn, reps=20, warm=2):.4f} ms device", flush=True)
+    # The programmatic dependent launches (kernel A's call: cand_prep
+    # behind cand_count above 512 item slots, cand_expand behind
+    # cand_prep; the sort's digit passes behind the upsweep) and the
+    # cluster launch, each call alone replayed from a graph beside eager.
+    bez_sort = sort_cases["beziers_10k bucketed"]
+    for what, fn in (
+            ("candfuse coarse pass's call, static tiger", lambda:
+             coarse.cand_stage(cand_scene, cap=akw["cap"], **cand_kw)),
+            ("candfuse coarse pass's call, beziers_10k", lambda:
+             coarse.cand_stage(bez_scene, cap=cand_caps[2], **bez_kw)),
+            ("sort device-memory route, beziers_10k bucketed", lambda:
+             sort.stable_sort_multi(*bez_sort)),
+            ("sort cluster route, static tiger", lambda:
+             sort.stable_sort_multi(sort_keys, sort_val, sort_bounds))):
+        t_graph = time_ms(replay_of(fn), reps=20, warm=2)
+        t_eager = time_ms(fn, reps=20, warm=2)
+        print(f"timing kernel in a graph, {what} [{card}]: {t_graph:.4f} ms "
+              f"replayed, {t_eager:.4f} ms eager (mean of back-to-back "
+              f"calls behind a spin)", flush=True)
 
     # The device-memory route on beziers_10k's keys and on 2^20 pairs,
     # beside its plain version, torch.sort on the first key and its bound

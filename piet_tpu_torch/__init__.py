@@ -19,7 +19,10 @@ is ported:
                        candidate backdrops
   ops/coarse.py     -- coarse binning -> entry stream (host-staged or
                        device-derived segment stage)
-  renderer/         -- Renderer(cfg).render(scene), on "cuda" by default
+  renderer/         -- Renderer(cfg).render(scene), on "cuda" by default;
+                       make_render_fn / make_render_sequence_fn: a frame
+                       (or N) as one CUDA graph replay (graph.py);
+                       ResizableRenderer (resize.py)
   scene/affine.py   -- make_affine_render_fn: any scene under affines of t
   scene/animate.py  -- make_animated_render_fn: the animated fixture at t
   kernels.py        -- nvcc build, ctypes load, launch counters

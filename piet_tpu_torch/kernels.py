@@ -18,10 +18,17 @@ Dispatch rule shared by every kernel wrapper (:func:`on_cuda`): a CPU
 tensor runs the plain PyTorch version; a CUDA tensor launches the kernel
 or raises.  Nothing falls back.  Each wrapper counts its launches in
 :data:`LAUNCHES`.
+
+A wrapper counts on the host, when it enqueues its kernel.  Under CUDA
+graph capture (renderer/graph.py) nothing runs: the capture's counts are
+taken apart (:func:`launches_apart`) and added back at every replay
+(:func:`add_launches`), so :data:`LAUNCHES` keeps counting the launches
+that ran.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -69,6 +76,26 @@ _LIB = None
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def add_launches(counts: dict) -> None:
+    for k, n in counts.items():
+        LAUNCHES[k] += n
+
+
+@contextlib.contextmanager
+def launches_apart():
+    """Count the launches made inside the block apart: they fill the
+    yielded dict (kernel -> launches), and :data:`LAUNCHES` is left as it
+    was before the block."""
+    before = dict(LAUNCHES)
+    apart = {}
+    try:
+        yield apart
+    finally:
+        for k, n in before.items():
+            apart[k] = LAUNCHES[k] - n
+            LAUNCHES[k] = n
 
 
 def _sources():

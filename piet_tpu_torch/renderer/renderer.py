@@ -13,11 +13,20 @@ frame), then a frame takes one of two routes (``fine_impl``):
   (T, CAP) PTCL, then the present composite: bailed tiles take their
   solid colour's bytes.
 
-PyTorch runs eagerly; a frame synchronizes once, when the capacity
-statistics are read.  Beside ``render``/``render_u32``: ``render_sequence``
-(a list of scenes, one staged frame after another), the single-buffer
-staging of ``pack_scene``/``unpack_scene`` (``render_packed_u32``), and
-``render_updated`` (restage only dirty fields of the last staged scene).
+A frame is one compiled step, as the JAX package's ``jax.jit`` makes it:
+:func:`make_render_fn` returns ``render(scene) -> (img, stats)``, which on
+a CUDA device is captured once per input signature as a CUDA graph and
+replayed on every later call (renderer/graph.py); on the CPU it runs
+eagerly.  :func:`make_render_sequence_fn` captures N frames of a stacked
+scene in one graph (the counterpart of JAX's one ``lax.map`` dispatch).
+Every ``Renderer`` entry point goes through them: ``render``/
+``render_u32`` stage into the step's static inputs and replay it,
+``render_sequence`` replays the sequence graph, ``render_packed_u32``
+replays a step that unpacks the single staging buffer of ``pack_scene``
+inside the graph, and ``render_updated`` copies only the dirty fields into
+the static inputs before a replay.  A frame synchronizes once, when the
+capacity statistics are read.  ``Renderer.render_device`` is the eager
+reference: the same frame op by op, on no entry point's path.
 
 Usage:
     r = Renderer.for_scene(scene, 1664, 1664)   # device="cuda" by default
@@ -26,7 +35,7 @@ Usage:
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -37,8 +46,10 @@ from ..scene.color import decode_color_linear
 from ..ops.coarse import DeviceScene, SegPre, coarse_rasterize
 from ..ops.fine import fine_rasterize_entries
 from ..ops.fine_xla import fine_rasterize_xla
+from .graph import CapturedStep
 
-#: The two frame routes; see the module doc.
+#: The two frame routes; see the module doc.  ``"auto"`` names the
+#: default, ``"entries"``.
 FINE_IMPLS = ("entries", "dense")
 
 
@@ -46,12 +57,45 @@ class SceneCapacityError(ValueError):
     pass
 
 
-def _to_device(arr, device) -> torch.Tensor:
-    """numpy array -> tensor on ``device``; uint32 travels as int32 bits."""
+def resolve_fine_impl(fine_impl: str) -> str:
+    """A route name, with ``"auto"`` (the JAX package's default) read as
+    the port's default route; raises for an unknown name."""
+    impl = "entries" if fine_impl == "auto" else fine_impl
+    if impl not in FINE_IMPLS:
+        raise ValueError(f"fine_impl must be one of {FINE_IMPLS} or 'auto', "
+                         f"got {fine_impl!r}")
+    return impl
+
+
+def check_device(device) -> torch.device:
+    """``device`` as a torch.device: "cpu", "cuda" or "cuda:n".  A CUDA
+    device without CUDA raises instead of running on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r}: CUDA is not available")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
+
+
+def _host_tensor(arr) -> torch.Tensor:
+    """numpy array -> CPU tensor of its own; uint32 as int32 bits."""
     a = np.ascontiguousarray(np.asarray(arr))
     if a.dtype == np.uint32:
         a = a.view(np.int32)
-    return torch.from_numpy(a.copy()).to(device)
+    return torch.from_numpy(a.copy())
+
+
+def _to_device(arr, device) -> torch.Tensor:
+    """numpy array -> tensor on ``device``; uint32 travels as int32 bits."""
+    return _host_tensor(arr).to(device)
+
+
+def _pad(arr, n: int) -> np.ndarray:
+    """``arr`` zero-padded along axis 0 to ``n`` rows."""
+    out = np.zeros((n,) + arr.shape[1:], arr.dtype)
+    out[:arr.shape[0]] = arr
+    return out
 
 
 def device_scene_from_numpy(leaves, device) -> DeviceScene:
@@ -83,21 +127,15 @@ def prepare_scene(scene, config: RenderConfig, device="cuda",
     from .segstage import build_seg_pre
 
     _check_scene_size(scene, config)
-
-    def pad(arr, n):
-        out = np.zeros((n,) + arr.shape[1:], arr.dtype)
-        out[:arr.shape[0]] = arr
-        return out
-
     NI = config.max_items
     host = DeviceScene(
-        tags=pad(scene.tags, NI), colors_u32=pad(scene.colors, NI),
-        colors_lin=pad(decode_color_linear(scene.colors), NI),
-        widths=pad(scene.widths, NI), bboxes=pad(scene.bboxes, NI),
-        pt_offset=pad(scene.pt_offset, NI), n_pts=pad(scene.n_pts, NI),
-        points=pad(scene.points, config.max_points),
-        flags=pad(scene.flags, NI), clips=pad(scene.clips, NI),
-        grads=pad(scene.grads, NI), n_items=np.int32(scene.n_items),
+        tags=_pad(scene.tags, NI), colors_u32=_pad(scene.colors, NI),
+        colors_lin=_pad(decode_color_linear(scene.colors), NI),
+        widths=_pad(scene.widths, NI), bboxes=_pad(scene.bboxes, NI),
+        pt_offset=_pad(scene.pt_offset, NI), n_pts=_pad(scene.n_pts, NI),
+        points=_pad(scene.points, config.max_points),
+        flags=_pad(scene.flags, NI), clips=_pad(scene.clips, NI),
+        grads=_pad(scene.grads, NI), n_items=np.int32(scene.n_items),
         seg_pre=build_seg_pre(scene, config) if seg_pre else None)
     return device_scene_from_numpy(host, device)
 
@@ -180,9 +218,11 @@ def stack_scenes(scenes, config: RenderConfig, device="cuda") -> DeviceScene:
 
 
 def _frame_of(stacked: DeviceScene, i: int) -> DeviceScene:
-    """Frame ``i`` of a ``stack_scenes`` DeviceScene (views)."""
+    """Frame ``i`` of a stacked DeviceScene (views)."""
+    sp = stacked.seg_pre
     return DeviceScene(*(x[i] for x in stacked[:-1]),
-                       seg_pre=SegPre(*(x[i] for x in stacked.seg_pre)))
+                       seg_pre=None if sp is None else SegPre(
+                           *(x[i] for x in sp)))
 
 
 def frame_scalar(t, device) -> torch.Tensor:
@@ -263,14 +303,121 @@ def render_slab(scene: DeviceScene, config: RenderConfig, *, tiles_y: int,
     return img, stats
 
 
+def _frame_flat(scene: DeviceScene, config: RenderConfig, fine_impl: str,
+                keys: List[str]) -> torch.Tensor:
+    """One whole-viewport frame as one int32 vector: the (H, W) image's
+    words, then each stat; the stat names go into ``keys``.  One output
+    tensor makes a frame one clone and one host read."""
+    img, stats = render_slab(scene, config, tiles_y=config.tiles_y, row0=0,
+                             fine_impl=fine_impl)
+    keys[:] = list(stats)
+    return torch.cat([img[:config.height, :config.width].reshape(-1),
+                      torch.stack([v.to(torch.int32)
+                                   for v in stats.values()])])
+
+
+class RenderFn:
+    """A compiled frame step: ``render(x) -> (img, stats)``, the image
+    (H, W) int32 RGBA8 bits (R in the low byte) and each stat a 0-d int32
+    tensor -- or, for a sequence step, (N, H, W) and (N,) -- fresh tensors
+    that no later call changes.  No host synchronization.
+
+    ``frame(x, keys)`` is the step (see :func:`_frame_flat`); on a CUDA
+    device it runs as a replayed CUDA graph (renderer/graph.py).
+    ``stage``/``static_inputs`` give the step's static input tensors,
+    ``n_graphs`` the input signatures it was built for, ``flat`` the
+    step's one output tensor (image words, then stats)."""
+
+    def __init__(self, config: RenderConfig, device, frame: Callable):
+        self.config = config
+        self.keys: List[str] = []
+        self.step = CapturedStep(lambda x: frame(x, self.keys), device)
+        self.stage = self.step.stage
+        self.static_inputs = self.step.static_inputs
+        self.n_graphs = self.step.n_graphs
+
+    def __call__(self, x):
+        return self.split(self.flat(x))
+
+    def flat(self, x) -> torch.Tensor:
+        return self.step(x)
+
+    def split(self, flat: torch.Tensor):
+        """(img, stats) views of a ``flat`` output."""
+        h, w = self.config.height, self.config.width
+        img = flat[..., :h * w].reshape(*flat.shape[:-1], h, w)
+        return img, {k: flat[..., h * w + i] for i, k in enumerate(self.keys)}
+
+
+class TimeRenderFn(RenderFn):
+    """A frame step of one number: ``render_t(t) -> (img, stats)``, where
+    ``t`` (a number or a 0-d tensor) is written into the step's static 0-d
+    f32 input -- a fill kernel, or a device copy for a device tensor, never
+    a blocking host copy -- and the step replayed."""
+
+    def __call__(self, t):
+        ts = self.static_inputs(_T_LIKE)
+        if isinstance(t, torch.Tensor) and t.device.type != "cpu":
+            ts.copy_(t)
+        else:
+            ts.fill_(float(t))
+        return super().__call__(ts)
+
+
+_T_LIKE = torch.empty((), dtype=torch.float32)
+
+
+def make_render_fn(config: RenderConfig, device="cuda",
+                   fine_impl: str = "entries") -> RenderFn:
+    """The frame step: a DeviceScene (``prepare_scene``, with or without
+    ``seg_pre``) -> ((H, W) image, stats).  The counterpart of the JAX
+    package's jitted ``make_render_fn``: on a CUDA device one CUDA graph
+    per input signature, replayed; on the CPU the eager ``render_slab``.
+    ``fine_impl``: "entries" (the default), "dense", or "auto" (=
+    "entries")."""
+    impl = resolve_fine_impl(fine_impl)
+    return RenderFn(config, check_device(device),
+                    lambda scene, keys: _frame_flat(scene, config, impl,
+                                                    keys))
+
+
+def make_render_sequence_fn(config: RenderConfig, device="cuda",
+                            fine_impl: str = "entries") -> RenderFn:
+    """The sequence step: a stacked DeviceScene (``stack_scenes``, frame
+    axis 0 on every tensor) -> ((N, H, W) images, stats of shape (N,)).
+    On a CUDA device all N frames are one CUDA graph, captured once per N
+    (the counterpart of the JAX package's one ``lax.map`` dispatch): a
+    sequence is one replay and one clone, whatever N."""
+    impl = resolve_fine_impl(fine_impl)
+
+    def frames(stacked: DeviceScene, keys):
+        return torch.stack([_frame_flat(_frame_of(stacked, i), config, impl,
+                                        keys)
+                            for i in range(stacked.tags.shape[0])])
+
+    return RenderFn(config, check_device(device), frames)
+
+
+def make_time_render_fn(config: RenderConfig, scene_at: Callable, device,
+                        fine_impl: str = "entries") -> TimeRenderFn:
+    """The frame step of a device animation: ``scene_at(t)`` (a 0-d f32
+    tensor on ``device`` -> the frame's DeviceScene, torch ops only) and
+    the frame, as one step -- one CUDA graph on a CUDA device."""
+    impl = resolve_fine_impl(fine_impl)
+    return TimeRenderFn(config, check_device(device),
+                        lambda t, keys: _frame_flat(scene_at(t), config,
+                                                    impl, keys))
+
+
 class Renderer:
-    """User-facing renderer: a config, the device it renders on and the
-    frame route.
+    """User-facing renderer: a config, the device it renders on, the frame
+    route and its compiled frame step (``make_render_fn``).
 
     ``device`` is "cuda" (the default), "cuda:n" or "cpu": a CUDA renderer
     without a CUDA device raises instead of running on the CPU.
     ``fine_impl`` is "entries" (the default; the JAX package's "pallas"
-    route) or "dense" (its "xla" route); see the module doc.
+    route), "dense" (its "xla" route) or "auto" ("entries"); see the
+    module doc.
     """
 
     #: DeviceScene fields ``render_updated`` may restage, keyed by the
@@ -280,19 +427,13 @@ class Renderer:
 
     def __init__(self, config: RenderConfig, device="cuda",
                  fine_impl: str = "entries"):
-        dev = torch.device(device)
-        if dev.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("Renderer(device='cuda'): CUDA is not "
-                               "available")
-        if dev.type not in ("cpu", "cuda"):
-            raise ValueError(f"unsupported device {device!r}")
-        if fine_impl not in FINE_IMPLS:
-            raise ValueError(f"fine_impl must be one of {FINE_IMPLS}, got "
-                             f"{fine_impl!r}")
+        self.device = check_device(device)
+        self.fine_impl = resolve_fine_impl(fine_impl)
         self.config = config
-        self.device = dev
-        self.fine_impl = fine_impl
-        self.last_stats: Optional[Dict[str, int]] = None
+        self.last_stats: Optional[Dict] = None
+        self._render = make_render_fn(config, self.device, self.fine_impl)
+        self._render_seq: Optional[RenderFn] = None
+        self._render_packed: Optional[RenderFn] = None
         self._staged: Optional[DeviceScene] = None
 
     @classmethod
@@ -307,30 +448,41 @@ class Renderer:
                    fine_impl=fine_impl)
 
     def prepare(self, scene) -> DeviceScene:
+        """The scene staged as fresh tensors on the renderer's device."""
         return prepare_scene(scene, self.config, self.device)
 
     def render_device(self, dev: DeviceScene):
-        """One frame of a staged scene: (H, W) int32 RGBA8 bits and the
-        stats tensors; no host synchronization.  A scene without
-        ``seg_pre`` (a device animation frame) has its segments derived
-        on the device."""
+        """The eager reference frame: one frame of a staged scene, op by op
+        (no graph), as (H, W) int32 RGBA8 bits and the stats tensors; no
+        host synchronization.  A scene without ``seg_pre`` (a device
+        animation frame) has its segments derived on the device."""
         cfg = self.config
         img, stats = render_slab(dev, cfg, tiles_y=cfg.tiles_y, row0=0,
                                  fine_impl=self.fine_impl)
         return img[:cfg.height, :cfg.width], stats
 
-    def _finish(self, dev: DeviceScene) -> torch.Tensor:
-        """Render a staged scene, read its stats (one sync), check them."""
-        img, stats = self.render_device(dev)
-        keys = list(stats)
-        vals = torch.stack([stats[k].to(torch.int64) for k in keys]).tolist()
-        self.last_stats = dict(zip(keys, vals))
-        self._check_capacity(self.last_stats)
+    def _finish(self, fn: RenderFn, x) -> torch.Tensor:
+        """Run ``fn`` on ``x``, read its stats (one sync) into
+        ``last_stats`` (ints, or lists of ints per frame for a sequence),
+        check every frame's; return the image(s)."""
+        flat = fn.flat(x)
+        img, _ = fn.split(flat)
+        vals = flat[..., -len(fn.keys):]
+        if vals.ndim == 1:
+            self.last_stats = dict(zip(fn.keys, vals.tolist()))
+            self._check_capacity(self.last_stats)
+        else:
+            self.last_stats = dict(zip(fn.keys, vals.t().tolist()))
+            self._check_capacity({k: sum(v)
+                                  for k, v in self.last_stats.items()})
         return img
 
     def render_u32(self, scene) -> torch.Tensor:
-        self._staged = self.prepare(scene)
-        return self._finish(self._staged)
+        """Stage ``scene`` into the frame step's static inputs and run it:
+        (H, W) int32 RGBA8 bits."""
+        self._staged = self._render.stage(
+            prepare_scene(scene, self.config, "cpu"))
+        return self._finish(self._render, self._staged)
 
     def render(self, scene) -> np.ndarray:
         return self._rgba8(self.render_u32(scene))
@@ -341,79 +493,68 @@ class Renderer:
 
     def render_sequence(self, scenes) -> np.ndarray:
         """Render N scenes -> (N, H, W, 4) uint8: the scenes are staged
-        together (``stack_scenes``) and rendered one frame after another.
+        together (``stack_scenes``) into the sequence step's static inputs
+        and rendered in one step (``make_render_sequence_fn``).
         ``last_stats`` holds each stat per frame (lists); every frame's
         stats are checked, so a frame past capacity raises."""
-        stacked = stack_scenes(scenes, self.config, self.device)
-        imgs, per_frame = [], []
-        for i in range(len(scenes)):
-            img, stats = self.render_device(_frame_of(stacked, i))
-            imgs.append(img)
-            per_frame.append(stats)
-        keys = list(per_frame[0])
-        vals = torch.stack([torch.stack([st[k].to(torch.int64)
-                                         for st in per_frame])
-                            for k in keys]).tolist()
-        self.last_stats = dict(zip(keys, vals))
-        self._check_capacity({k: sum(v) for k, v in self.last_stats.items()})
-        return self._rgba8(torch.stack(imgs))
+        if self._render_seq is None:
+            self._render_seq = make_render_sequence_fn(
+                self.config, self.device, self.fine_impl)
+        stacked = stack_scenes(scenes, self.config, "cpu")
+        return self._rgba8(self._finish(self._render_seq, stacked))
 
-    def packed_render_fn(self):
-        """``buf -> (img, stats)``: unpack a ``pack_scene`` buffer (int32
-        bits on the renderer's device) and render it; no host sync, so a
+    def packed_render_fn(self) -> RenderFn:
+        """The packed-buffer frame step: a ``pack_scene`` buffer (int32
+        bits) -> (img, stats), unpacked inside the step (as the JAX package
+        jits ``unpack_scene`` with the render).  No host sync: a
         multi-frame caller checks capacities itself."""
-        cfg = self.config
-
-        def render_packed(buf: torch.Tensor):
-            return self.render_device(unpack_scene(buf, cfg))
-
-        return render_packed
+        if self._render_packed is None:
+            cfg, impl = self.config, self.fine_impl
+            self._render_packed = RenderFn(
+                cfg, self.device, lambda buf, keys: _frame_flat(
+                    unpack_scene(buf, cfg), cfg, impl, keys))
+        return self._render_packed
 
     def render_packed_u32(self, scene) -> torch.Tensor:
         """Single-transfer render: pack the scene into one staging buffer
-        on the host, copy it once, unpack it on the device and render."""
-        buf = pack_scene(scene, self.config).view(np.int32)
-        return self._finish(unpack_scene(
-            torch.from_numpy(buf).to(self.device), self.config))
+        on the host, copy it once into the packed step's static buffer,
+        unpack and render in the step."""
+        buf = torch.from_numpy(pack_scene(scene, self.config).view(np.int32))
+        return self._finish(self.packed_render_fn(), buf)
 
     def render_updated(self, scene, fields=("points", "colors",
                                             "bboxes")) -> torch.Tensor:
-        """Incremental re-render: restage only ``fields`` of the scene
-        staged by the last ``render``/``render_u32``, reusing every other
-        tensor.  Topology (tags, offsets, counts, item count) must not have
-        changed.  When a geometry field is dirty, the host segment stage
-        is rebuilt for the updated scene."""
+        """Incremental re-render: copy only ``fields`` of ``scene`` into the
+        static inputs staged by the last ``render``/``render_u32`` (every
+        other tensor stays as staged), then run the step.  Topology (tags,
+        offsets, counts, item count) must not have changed.  When a
+        geometry field is dirty, the host segment stage is rebuilt for the
+        updated scene and copied in too."""
         if self._staged is None:
             return self.render_u32(scene)
         cfg = self.config
         _check_scene_size(scene, cfg)
+        dev = self._staged
 
-        def pad(arr, n):
-            out = np.zeros((n,) + arr.shape[1:], arr.dtype)
-            out[:arr.shape[0]] = arr
-            return _to_device(out, self.device)
+        def put(dst: torch.Tensor, arr) -> None:
+            dst.copy_(_host_tensor(_pad(np.asarray(arr), dst.shape[0])))
 
-        dev, geom_dirty = self._staged, False
+        geom_dirty = False
         for f in fields:
             if f not in self._DYNAMIC_FIELDS:
                 raise ValueError(f"field {f!r} is not restageable")
-            if f == "points":
-                dev = dev._replace(points=pad(scene.points, cfg.max_points))
-            elif f == "colors":
-                dev = dev._replace(
-                    colors_u32=pad(scene.colors, cfg.max_items),
-                    colors_lin=pad(decode_color_linear(scene.colors),
-                                   cfg.max_items))
+            if f == "colors":
+                put(dev.colors_u32, scene.colors)
+                put(dev.colors_lin, decode_color_linear(scene.colors))
             else:
-                dev = dev._replace(**{f: pad(getattr(scene, f),
-                                             cfg.max_items)})
+                put(getattr(dev, f), getattr(scene, f))
             geom_dirty |= f in ("points", "bboxes", "widths")
         if geom_dirty and dev.seg_pre is not None:
             from .segstage import build_seg_pre
-            dev = dev._replace(seg_pre=_stage_seg_pre(
-                build_seg_pre(scene, cfg), self.device))
-        self._staged = dev
-        return self._finish(dev)
+            sp = build_seg_pre(scene, cfg)
+            for f in SegPre._fields:
+                put(getattr(dev.seg_pre, f), getattr(sp, f))
+        return self._finish(self._render, dev)
 
     def _check_capacity(self, stats: Dict[str, int]) -> None:
         # The winding deltas ride the hit records, so the record

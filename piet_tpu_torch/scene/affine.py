@@ -243,18 +243,21 @@ def host_transform_scene(scene, m):
 def make_affine_render_fn(config, scene, mats_fn: Callable, device="cuda",
                           fine_impl: str = "entries"):
     """``t -> (image, stats)`` rendering ``scene`` under ``mats_fn(t)``
-    ((NI, 6) or (6,) affines from a 0-d f32 tensor on the device):
-    transform, coarse (segments derived on the device), fine and present.
+    ((NI, 6) or (6,) affines from a 0-d f32 tensor on the device, torch
+    ops only): transform, coarse (segments derived on the device), fine
+    and present, the whole frame in ONE step -- one CUDA graph replay on a
+    CUDA device, as the JAX package jits it (renderer/renderer.py::
+    make_time_render_fn).
 
-    The scene is staged once; a frame costs the transform and the render,
-    with no host encode.  ``render_t.scene_at(t)`` returns the frame's
-    DeviceScene (for the oracle contract; see the module doc).
-    ``fine_impl`` picks the frame route (renderer/renderer.py).
+    The scene is staged once; a frame is a fill of the step's ``t`` and
+    a replay, with no host encode.  ``render_t.scene_at(t)`` returns the
+    frame's DeviceScene, computed eagerly (for the oracle contract; see
+    the module doc).  ``fine_impl`` picks the frame route.
     """
-    from ..renderer.renderer import Renderer, frame_scalar, prepare_scene
+    from ..renderer.renderer import (check_device, frame_scalar,
+                                     make_time_render_fn, prepare_scene)
 
-    renderer = Renderer(config, device, fine_impl)
-    dev = renderer.device
+    dev = check_device(device)
     base = prepare_scene(scene, config, dev, seg_pre=False)
     ab = build_base(scene, config, dev)
 
@@ -262,8 +265,6 @@ def make_affine_render_fn(config, scene, mats_fn: Callable, device="cuda",
         return transform_device_scene(base, ab,
                                       mats_fn(frame_scalar(t, dev)))
 
-    def render_t(t):
-        return renderer.render_device(scene_at(t))
-
+    render_t = make_time_render_fn(config, scene_at, dev, fine_impl)
     render_t.scene_at = scene_at
     return render_t

@@ -146,14 +146,16 @@ def make_animated_render_fn(config, *, size: int = 1024, n: int = 200,
                             seed: int = 5, device="cuda",
                             fine_impl: str = "entries"):
     """``t -> (image, stats)`` with the whole frame -- geometry, coarse
-    (segments derived on the device), fine, present -- on ``device``.
+    (segments derived on the device), fine, present -- in ONE step on
+    ``device``: one CUDA graph replay a frame on a CUDA device, as the JAX
+    package jits it (renderer/renderer.py::make_time_render_fn).
     Returns (render_t, template scene) so callers can check capacities;
-    ``render_t.scene_at(t)`` returns the frame's DeviceScene; ``fine_impl``
-    picks the frame route (renderer/renderer.py)."""
-    from ..renderer.renderer import Renderer, prepare_scene
+    ``render_t.scene_at(t)`` returns the frame's DeviceScene, computed
+    eagerly; ``fine_impl`` picks the frame route."""
+    from ..renderer.renderer import (check_device, make_time_render_fn,
+                                     prepare_scene)
 
-    renderer = Renderer(config, device, fine_impl)
-    dev = renderer.device
+    dev = check_device(device)
     tmpl = template_scene(size=size, n=n, seed=seed)
     base = prepare_scene(tmpl, config, dev, seg_pre=False)
     params = host_params(size=size, n=n, seed=seed, device=dev)
@@ -161,8 +163,6 @@ def make_animated_render_fn(config, *, size: int = 1024, n: int = 200,
     def scene_at(t):
         return animate_device_scene(base, params, t)
 
-    def render_t(t):
-        return renderer.render_device(scene_at(t))
-
+    render_t = make_time_render_fn(config, scene_at, dev, fine_impl)
     render_t.scene_at = scene_at
     return render_t, tmpl

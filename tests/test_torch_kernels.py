@@ -28,9 +28,9 @@ from piet_tpu_torch.raster.synth_ptcl import synth_dense_ptcl
 from piet_tpu_torch.renderer.capacity import fit_capacities
 from piet_tpu_torch.renderer.renderer import (Renderer, _solid_to_present_u32,
                                               device_scene_from_numpy,
-                                              fetch_scene, pack_scene,
-                                              prepare_scene, render_slab,
-                                              unpack_scene)
+                                              fetch_scene, make_render_fn,
+                                              pack_scene, prepare_scene,
+                                              render_slab, unpack_scene)
 from piet_tpu_torch.renderer.segstage import build_seg_pre
 from piet_tpu_torch.scene import affine, animate, fixtures
 from piet_tpu_torch.scene.svg import make_tiger
@@ -95,6 +95,23 @@ def test_plain_calls_do_not_count_launches():
     scene = fixtures.get_scene("path_test")
     Renderer.for_scene(scene, 256, 256, device="cpu").render(scene)
     assert all(v == 0 for v in kernels.LAUNCHES.values())
+
+
+def test_launches_apart_keeps_counts_out():
+    """Launches counted inside launches_apart go to its dict, not to
+    LAUNCHES; add_launches adds such a dict back (a graph replay)."""
+    kernels.reset_launches()
+    kernels.LAUNCHES["sort"] = 2
+    with kernels.launches_apart() as apart:
+        kernels.LAUNCHES["sort"] += 1
+        kernels.LAUNCHES["fine"] += 3
+    assert kernels.LAUNCHES["sort"] == 2 and kernels.LAUNCHES["fine"] == 0
+    assert apart["sort"] == 1 and apart["fine"] == 3
+    assert set(apart) == set(kernels.LAUNCHES)
+    kernels.add_launches(apart)
+    kernels.add_launches(apart)
+    assert kernels.LAUNCHES["sort"] == 4 and kernels.LAUNCHES["fine"] == 6
+    kernels.reset_launches()
 
 
 def _c_entry_points(text: str) -> dict:
@@ -952,3 +969,99 @@ def test_cuda_candfuse_and_gatherm_device_ops(cuda_inputs):
              lambda: gatherm.gather_monotone(rows, idxs), 1)):
         ops = _device_ops(lambda: [fn() for _ in range(3)])
         assert len(ops) == 3 * per_call, (name, ops)
+
+
+# ---- the frame as one CUDA graph (renderer/graph.py) ----------------------
+
+def _needs_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fine_impl", ["entries", "dense"])
+def test_cuda_graph_replay_equals_eager(fine_impl):
+    """The replayed frame equals the eager render_slab frame bit for bit,
+    stats included, on a host-staged and a device-derived segment stage;
+    the returned image is a fresh tensor."""
+    _needs_cuda()
+    scene = make_tiger(scale=1.0)
+    r = Renderer.for_scene(scene, 512, 512, device="cuda",
+                           fine_impl=fine_impl)
+    render = make_render_fn(r.config, fine_impl=fine_impl)
+    for seg_pre in (True, False):
+        dev = prepare_scene(scene, r.config, "cuda", seg_pre=seg_pre)
+        img, stats = render(dev)
+        want, want_stats = r.render_device(dev)
+        assert torch.equal(img, want)
+        assert {k: int(v) for k, v in stats.items()} == {
+            k: int(v) for k, v in want_stats.items()}
+        img2, _ = render(dev)
+        assert torch.equal(img2, img)
+        assert img2.data_ptr() != img.data_ptr()
+    assert render.n_graphs() == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fine_impl", ["entries", "dense"])
+def test_cuda_graph_two_replays_beziers(fine_impl):
+    """beziers_10k at 1024^2: the sort's device-memory route (a memset of
+    its counters and programmatic dependent launches) and keyed's memset
+    inside the graph: two replays in a row give the eager frame."""
+    _needs_cuda()
+    scene = fixtures.get_scene("beziers_10k")
+    r = Renderer.for_scene(scene, 1024, 1024, device="cuda",
+                           fine_impl=fine_impl)
+    cfg = r.config
+    assert sort.sort_plan(cfg.max_hits + cfg.max_candidates, (
+        cfg.n_tiles * 2 * (cfg.max_items + 1),)).cluster == 0
+    render = make_render_fn(cfg, fine_impl=fine_impl)
+    dev = render.stage(prepare_scene(scene, cfg, "cuda"))
+    a, _ = render(dev)
+    b, _ = render(dev)
+    want, _ = r.render_device(dev)
+    assert torch.equal(a, want) and torch.equal(b, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fine_impl", ["entries", "dense"])
+def test_cuda_render_updated_equals_fresh_render(fine_impl):
+    """render_updated copies moved points (and the rebuilt segment stage)
+    into the graph's static inputs: the replay equals a fresh render."""
+    _needs_cuda()
+    scene = fixtures.make_animated_frame(0.3, size=256, n=24)
+    cfg = fit_capacities(scene, RenderConfig(width=256, height=256,
+                                             tile_height=16, tile_width=128),
+                         bucket=True)
+    r = Renderer(cfg, "cuda", fine_impl=fine_impl)
+    r.render_u32(scene)
+    moved = dataclasses.replace(scene, points=scene.points + 2.0,
+                                bboxes=scene.bboxes + 2)
+    got = r.render_updated(moved)
+    assert r._render.n_graphs() == 1
+    fresh = Renderer(cfg, "cuda", fine_impl=fine_impl)
+    assert torch.equal(got, fresh.render_u32(moved))
+    np.testing.assert_array_equal(r._rgba8(got), cpu_render_scene(moved, cfg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fine_impl", ["entries", "dense"])
+def test_cuda_launches_count_replays(fine_impl):
+    """LAUNCHES after N replays is N times the launches the capture
+    recorded; the warm-up and the capture add nothing."""
+    _needs_cuda()
+    scene = make_tiger(scale=1.0)
+    cfg = fit_capacities(scene, RenderConfig(width=512, height=512),
+                         bucket=True)
+    render = make_render_fn(cfg, fine_impl=fine_impl)
+    dev = prepare_scene(scene, cfg, "cuda")
+    kernels.reset_launches()
+    render(dev)
+    (entry,) = render.step._entries.values()
+    captured = entry.launches
+    route = "fine" if fine_impl == "entries" else "fine_dense"
+    assert captured[route] == captured["keyed"] == captured["sort"] == 1
+    assert dict(kernels.LAUNCHES) == captured
+    for _ in range(4):
+        render(dev)
+    assert kernels.LAUNCHES == {k: 5 * n for k, n in captured.items()}
