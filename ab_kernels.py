@@ -7,6 +7,7 @@ print each tree's compiler statistics.
     python3 ab_kernels.py --ptxas ROOT
     python3 ab_kernels.py --sort-variants ROOT
     python3 ab_kernels.py --cand-variants ROOT
+    python3 ab_kernels.py --profiler-drops ROOT
 
 ROOT_A and ROOT_B are checkouts of this repository (e.g. a parent commit
 unpacked with ``git archive`` into a gitignored directory, and the working
@@ -65,8 +66,11 @@ is timed only), then each kernel's device time per call
 (rows and expansion) on the static 1664^2 tiger, on beziers_10k at
 1024^2 and on beziers_10k's items repeated to CAND_REPEATS item slots, in
 turns, each compared bitwise with the plain version (the variants that
-skip work are timed only) and beside the plain version's time.  Every line names the card and
-its power limit.  Needs
+skip work are timed only) and beside the plain version's time.
+``--profiler-drops`` counts how often a torch.profiler trace of three
+kernel-A calls reads fewer device ops than a CUDA graph of them holds,
+in a process's first traces and after frame graph replays.  Every line
+names the card and its power limit.  Needs
 one card; exits non-zero without one.
 """
 
@@ -708,6 +712,63 @@ def cand_variants(root: str) -> None:
                   + " | ".join(cols), flush=True)
 
 
+def profiler_drops(root: str, traces: int = 20) -> None:
+    """How often a torch.profiler trace drops kernel records: kernel A's
+    item rows called three times (3 device ops on the static 1664^2
+    tiger, counted exactly from a CUDA graph), traced ``traces`` times
+    in each of three states of one process -- its first traces, after a
+    frame graph was captured and replayed 50 times, and after a trace of
+    a replayed frame -- each trace's count of device ops printed."""
+    sys.path.insert(0, root)
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from piet_tpu_torch.host import make_tiger
+    from piet_tpu_torch.ops import coarse
+    from piet_tpu_torch.renderer.graph import device_ops
+    from piet_tpu_torch.renderer.renderer import Renderer
+
+    card = card_line()
+    scene = make_tiger()
+    r = Renderer.for_scene(scene, 1664, 1664, device="cuda")
+    d = r.prepare(scene)
+    kw = dict(tiles_x=r.config.tiles_x, tiles_y=r.config.tiles_y,
+              tile_w=r.config.tile_width, tile_h=r.config.tile_height)
+
+    def calls():
+        for _ in range(3):
+            coarse.cand_inputs(d, **kw)
+
+    def trace(fn):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(e.device_type == DeviceType.CUDA for e in prof.events())
+
+    calls()
+    torch.cuda.synchronize()
+    exact = len(device_ops(calls))
+    counts = {"first traces of the process":
+              [trace(calls) for _ in range(traces)]}
+    for _ in range(50):
+        r.render_u32(scene)
+    torch.cuda.synchronize()
+    counts["after 50 frame graph replays"] = [trace(calls)
+                                              for _ in range(traces)]
+    frame = trace(lambda: r.render_u32(scene))
+    counts["after a trace of a replayed frame"] = [trace(calls)
+                                                   for _ in range(traces)]
+    for what, got in counts.items():
+        short = sum(c < exact for c in got)
+        print(f"profiler drops, {what} [{card}]: {short} of {len(got)} "
+              f"traces short of the graph's {exact} device ops; counts "
+              f"{got}", flush=True)
+    print(f"profiler drops: the traced replayed frame read {frame} device "
+          f"ops [{card}]", flush=True)
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -722,6 +783,7 @@ def main() -> int:
     ap.add_argument("--ptxas")
     ap.add_argument("--sort-variants")
     ap.add_argument("--cand-variants")
+    ap.add_argument("--profiler-drops")
     a = ap.parse_args()
     if a.worker:
         worker(a.worker)
@@ -735,6 +797,13 @@ def main() -> int:
             print("ab_kernels: needs a CUDA card", file=sys.stderr)
             return 1
         cand_variants(a.cand_variants)
+        return 0
+    if a.profiler_drops:
+        import torch
+        if not torch.cuda.is_available():
+            print("ab_kernels: needs a CUDA card", file=sys.stderr)
+            return 1
+        profiler_drops(a.profiler_drops)
         return 0
     if a.sort_variants:
         import torch

@@ -92,7 +92,21 @@ and exits non-zero:
      calls), device ops and busy ms per frame, busy share, and each of
      the port's kernels' ms per frame in both; and kernel A's call and
      both sort routes (programmatic dependent and cluster launches) are
-     each replayed alone from a graph beside their eager time.
+     each replayed alone from a graph beside their eager time;
+  7. the command line (``piet_tpu_torch.cli.main``, in this process, the
+     launch counters reset before and read after each command): render
+     of the tiger at 1664^2 on both routes and of the tiger's SVG file
+     at 1024^2; animate, 3 frames each, of the animated fixture (device
+     and host encode) and the affine tiger; goldens --tolerance 0 on both
+     routes; bench of the tiger and of the re-encoded animated fixture
+     (native builder) with its roofline; profile of the tiger at 1664^2
+     and beziers_10k at 1024^2 on both routes (every stage >= 0, the
+     dispatch floor and the stages within 10% of coarse_total, every
+     pct_of_roofline <= 100); dump and info; a RenderContext scene; the
+     C++ golden rasterizer's tiger beside the card's frame; host staging
+     (fit_capacities, build_seg_pre, prepare_scene) timed.  Every image
+     is held against the numpy oracle bitwise (the oracle images of
+     phases 4 and 5 shared).
 
 The line before the last is the kernel table as JSON, each kernel with
 the path whose run gave its launch count (and, under "paths", every path
@@ -107,17 +121,8 @@ import json
 import math
 import re
 import statistics
-import subprocess
 import sys
 import time
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
 
 
 #: GPU spin before a timed batch (~25 ms at H100 clocks), so the host
@@ -125,13 +130,6 @@ def card_line() -> str:
 #: time back-to-back device work, not the host's launch overhead.
 SPIN_CYCLES = 50_000_000
 
-#: Published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s and
-#: float32 operations/s outside the tensor cores.  The data sheet's 67
-#: TFLOP/s counts a fused multiply-add as two operations; the kernels are
-#: built with -fmad=false, so every multiply and add runs on its own and
-#: the attainable rate is half that.
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12 / 2
 #: Float32 operations per pixel per command in the fine interpreter -- a
 #: lower bound (a fill's trapezoid area or a line's distance field takes
 #: more), so the fine bound is a least time.
@@ -229,14 +227,6 @@ def bitwise(a, b):
     err = float(torch.nan_to_num(diff[bad], nan=float("inf")).max()) \
         if n_bad else 0.0
     return n_bad, err
-
-
-def bound(n_bytes: float, n_ops: float = 0.0):
-    """(least ms, what bounds it) for ``n_bytes`` moved and ``n_ops`` f32
-    operations at the H100's published peaks."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def nbytes(*tensors) -> int:
@@ -534,6 +524,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    # nvidia-smi's name and power limit of the card.
+    from piet_tpu_torch.cli import card_line
     card = card_line()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -550,6 +542,8 @@ def main() -> int:
     from piet_tpu_torch.renderer.renderer import (Renderer,
                                                   _solid_to_present_u32,
                                                   fetch_scene)
+    # The H100's peaks and the least-time bound (roofline.py).
+    from piet_tpu_torch.roofline import bound
     from piet_tpu_torch.scene import fixtures
 
     # ---- 2. build ------------------------------------------------------
@@ -1358,6 +1352,11 @@ def main() -> int:
           f"{dense_ops[1664, 1664]:.0f} device ops per dense frame",
           flush=True)
 
+    # ---- 7. the command line on the card --------------------------------
+    cli_paths = phase_cli(card, dev, scene, cfg, golds[1664, 1664],
+                          aff_render, aff_ni, aff_np, anim_render, anim_ni,
+                          anim_np, anim_golds)
+
     # Each kernel's launches on a path that runs it: the affine tiger's two
     # frames (entries route) for the seven, one dense static tiger frame
     # for fine_dense.
@@ -1372,6 +1371,8 @@ def main() -> int:
         "beziers_10k 1024x1024, 1 frame, entries route (device-memory "
         "route)", baseline["beziers_10k", "entries"][2]["sort"]))
     table["sort"]["device_memory_route"] = route2
+    for name, runs in cli_paths.items():
+        paths[name] += runs
     print(json.dumps({"kernels": [
         {"name": name, "route": k["route"], "source": k["source"],
          "replaces": k["replaces"], "path": paths[name][0][0],
@@ -1387,6 +1388,278 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+#: Kernels of the entries route and the dense route of a frame.
+ENTRIES_KERNELS = ("candfuse", "hitfuse", "sort", "fine", "keyed", "gatherm")
+DENSE_KERNELS = ("candfuse", "hitfuse", "sort", "fine_dense", "keyed",
+                 "gatherm")
+#: Where phase 7's command lines write their PNGs (gitignored).
+CLI_OUT = "build/chip_smoke_cli"
+
+
+def run_cli(argv, expect=(), absent=(), paths=None):
+    """``python -m piet_tpu_torch <argv>`` in this process, the launch
+    counters set to 0 just before and read just after: (exit code, its
+    stdout lines).  Prints one line; fails unless it exits 0, every kernel
+    of ``expect`` ran and none of ``absent``.  Adds each kernel's launches
+    to ``paths`` (kernel -> [(command, launches)])."""
+    import contextlib
+    import io
+
+    import torch
+    from piet_tpu_torch import cli, kernels
+    buf = io.StringIO()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    cmd = "python -m piet_tpu_torch " + " ".join(argv)
+    print(f"cli {cmd}: exit {rc}, {secs:.1f} s; launches {launches}",
+          flush=True)
+    assert rc == 0, cmd
+    assert all(launches[k] > 0 for k in expect), (cmd, launches)
+    assert all(launches[k] == 0 for k in absent), (cmd, launches)
+    if paths is not None:
+        for k, n in launches.items():
+            if n:
+                paths.setdefault(k, []).append((cmd, n))
+    return buf.getvalue().splitlines()
+
+
+def scene_key(sc, cfg) -> tuple:
+    """A scene's arrays and the tile geometry: what an oracle image
+    depends on (with a command capacity that drops nothing)."""
+    import numpy as np
+    return (cfg.width, cfg.height, cfg.tile_width, cfg.tile_height) + tuple(
+        np.ascontiguousarray(getattr(sc, f)).tobytes()
+        for f in ("tags", "colors", "widths", "bboxes", "pt_offset",
+                  "n_pts", "points", "flags", "clips", "grads"))
+
+
+def phase_cli(card, dev, scene, cfg, tiger_gold, aff_render, aff_ni,
+              aff_np, anim_render, anim_ni, anim_np, anim_golds) -> dict:
+    """Phase 7: every command of the command line, in process, each image
+    held against the numpy oracle bitwise (oracle images of phases 4 and
+    5 shared by key); the profiler's and the roofline's checks; host
+    staging timed.  Returns kernel -> [(command, launches)]."""
+    import argparse
+    import shutil
+    from pathlib import Path
+
+    import torch
+    from piet_tpu_torch import cli, native
+    from piet_tpu_torch.api import RenderContext
+    from piet_tpu_torch.geometry import Affine
+    from piet_tpu_torch.geometry.shapes import CirclePath, Line, Rect
+    from piet_tpu_torch.geometry.shapes import RoundedRect
+    from piet_tpu_torch.host import (RenderConfig, build_seg_pre,
+                                     cpu_render_scene, fit_capacities)
+    from piet_tpu_torch.profiling import PROFILED
+    from piet_tpu_torch.renderer.renderer import (Renderer, fetch_scene,
+                                                  prepare_scene)
+    from piet_tpu_torch.roofline import frame_roofline
+    from piet_tpu_torch.scene.fixtures import get_scene, make_animated_frame
+    from piet_tpu_torch.scene.scene import RadialGradient
+    from piet_tpu_torch.scene.svg import TIGER_PATH
+    from piet_tpu_torch.scene.svg_full import load_svg_file
+    from piet_tpu_torch.utils.png import read_png
+
+    t_phase = time.perf_counter()
+    out = Path(CLI_OUT)
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    paths: dict = {}
+    golds = {}
+    for (tag, t), g in anim_golds.items():
+        render_t, ni, npts = ((aff_render, aff_ni, aff_np) if "affine" in tag
+                              else (anim_render, anim_ni, anim_np))
+        fc = cfg if "affine" in tag else RenderConfig(width=1024,
+                                                      height=1024)
+        golds[scene_key(fetch_scene(render_t.scene_at(t), ni, npts),
+                        fc)] = g
+
+    def oracle(sc, w, h):
+        """The oracle image of ``sc`` at w x h in 32x128 tiles, with a
+        command capacity fitted to it; phases 4-5's where they exist."""
+        c = fit_capacities(sc, RenderConfig(width=w, height=h), bucket=True)
+        key = scene_key(sc, c)
+        if key not in golds:
+            golds[key] = cpu_render_scene(sc, c)
+        return golds[key]
+
+    def check(tag, got, gold):
+        n_bad = int((got != gold).any(-1).sum())
+        print(f"cli image {tag}: {n_bad} pixels differ from the numpy "
+              f"oracle", flush=True)
+        assert got.shape == gold.shape and n_bad == 0, tag
+
+    def ns(w, h):
+        return argparse.Namespace(width=w, height=h)
+
+    # The command line's configuration is phase 4's: one oracle image.
+    assert cli._config_for(ns(1664, 1664), scene) == cfg
+    tiger_png = {}
+    for impl in ("entries", "dense"):
+        png = out / f"tiger_{impl}.png"
+        run_cli(["render", "--scene", "tiger", "--width", "1664",
+                 "--height", "1664", "--fine-impl", impl, "--out", str(png)],
+                ENTRIES_KERNELS if impl == "entries" else DENSE_KERNELS,
+                ("expand",) + (("fine_dense",) if impl == "entries"
+                               else ("fine",)), paths)
+        tiger_png[impl] = read_png(str(png))
+        check(f"render tiger 1664x1664 {impl}", tiger_png[impl], tiger_gold)
+    svg = Path(TIGER_PATH)
+    png = out / "tiger_svg.png"
+    run_cli(["render", "--svg", str(svg), "--width", "1024", "--height",
+             "1024", "--out", str(png)], ENTRIES_KERNELS, ("fine_dense",),
+            paths)
+    svg_scene = load_svg_file(str(svg), scale=None, target_width=1024)
+    check("render --svg tiger 1024x1024 entries", read_png(str(png)),
+          cpu_render_scene(svg_scene, cli._config_for(ns(1024, 1024),
+                                                      svg_scene)))
+
+    # Three frames each, t = 0, 23/120, 23/60 (two of them phase 5's).
+    dt = 23.0 / 120.0
+    ts = [i * dt for i in range(3)]
+    anim = ["animate", "--frames", "3", "--dt", repr(dt)]
+    for tag, argv, frames, size in (
+            ("animated fixture, device", ["--scene", "animated", "--width",
+                                          "1024", "--height", "1024"],
+             [fetch_scene(anim_render.scene_at(t), anim_ni, anim_np)
+              for t in ts], 1024),
+            ("animated fixture, host encode",
+             ["--scene", "animated", "--width", "1024", "--height", "1024",
+              "--host-encode"], [make_animated_frame(t) for t in ts], 1024),
+            ("affine tiger", ["--scene", "tiger", "--affine", "--width",
+                              "1664", "--height", "1664"],
+             [fetch_scene(aff_render.scene_at(t), aff_ni, aff_np)
+              for t in ts], 1664)):
+        d = out / tag.replace(" ", "_").replace(",", "")
+        lines = run_cli(anim + argv + ["--outdir", str(d)], ENTRIES_KERNELS
+                        + (() if "host" in tag else ("expand",)),
+                        ("fine_dense",), paths)
+        print(f"cli animate {tag}: {lines[-2]} {lines[-1]}", flush=True)
+        for i, fr in enumerate(frames):
+            check(f"animate {tag} frame {i} (t={ts[i]:.4f})",
+                  read_png(str(d / f"frame_{i:04d}.png")),
+                  oracle(fr, size, size))
+
+    for impl in ("entries", "dense"):
+        lines = run_cli(["goldens", "--tolerance", "0", "--fine-impl", impl,
+                         "--outdir", str(out / f"goldens_{impl}")],
+                        ENTRIES_KERNELS if impl == "entries"
+                        else DENSE_KERNELS, (), paths)
+        print(f"cli goldens {impl}: " + "; ".join(lines), flush=True)
+
+    assert native.available(), "the native cc/ library did not build"
+    roofs = []
+    for argv in (["bench", "--scene", "tiger", "--width", "1664", "--height",
+                  "1664"],
+                 ["bench", "--scene", "animated", "--reencode"]):
+        lines = run_cli(argv, ENTRIES_KERNELS, (), paths)
+        print("\n".join(f"cli bench: {ln}" for ln in lines[-3:]), flush=True)
+        roofs.append(json.loads(lines[-3])["roofline"])
+
+    profiles = {}
+    for name, w, sc in (("tiger", 1664, scene),
+                        ("beziers_10k", 1024, get_scene("beziers_10k"))):
+        pcfg = cli._config_for(ns(w, w), sc)
+        for impl in ("entries", "dense"):
+            lines = run_cli(["profile", "--scene", name, "--width", str(w),
+                             "--height", str(w), "--fine-impl", impl],
+                            (), (), None)
+            res = json.loads(lines[-1])
+            stages = sum(res[n] for n in PROFILED)
+            total = res["dispatch_floor"] + stages
+            r = Renderer(pcfg, dev, fine_impl=impl)
+            r.render(sc)
+            roof = frame_roofline(r.last_stats, pcfg, res["coarse_total"],
+                                  res["fine"], res["end_to_end"])
+            roofs.append(roof)
+            profiles[f"{name} {w}x{w} {impl}"] = dict(profile=res,
+                                                      roofline=roof)
+            print(f"cli profile {name} {w}x{w} {impl} [{card}]:\n"
+                  + "\n".join(lines[:-2]), flush=True)
+            print(f"cli profile {name} {w}x{w} {impl} [{card}]: "
+                  f"dispatch_floor + stages {total:.4f} ms against "
+                  f"coarse_total {res['coarse_total']:.4f} ms "
+                  f"({100 * (total / res['coarse_total'] - 1):+.1f}%); "
+                  f"roofline {json.dumps(roof)}", flush=True)
+            assert all(v >= 0 for v in res.values()), res
+            assert abs(total - res["coarse_total"]) <= (
+                0.1 * res["coarse_total"]), res
+    for roof in roofs:
+        for stage, d in roof.items():
+            assert d.get("pct_of_roofline", 0) <= 100, (stage, d)
+    print(f"cli profiles [{card}]: {json.dumps(profiles)}", flush=True)
+
+    lines = run_cli(["dump", "--scene", "tiger"], (), (), None)
+    print(f"cli dump tiger: {len(lines)} lines, last {lines[-1]!r}",
+          flush=True)
+    lines = run_cli(["info"], (), (), None)
+    print("cli info: " + "; ".join(lines), flush=True)
+
+    # A RenderContext scene (tests/test_api.py's mixed one) on both routes.
+    ctx = RenderContext()
+    ctx.transform(Affine.rotate(math.radians(10.0))
+                  * Affine.translate(10.0, -10.0))
+    with ctx.clipped(CirclePath((64.0, 64.0), 56.0)):
+        ctx.fill(Rect(-50.0, -50.0, 250.0, 250.0),
+                 RadialGradient((64.0, 64.0), 70.0, 0xFFE000FF, 0x0030A0FF))
+        ctx.stroke(Line((0.0, 20.0), (128.0, 100.0)), 0x000000FF, 3.0)
+    ctx.fill(RoundedRect(70.5, 70.5, 120.5, 120.5, 8.0), 0x20C040FF)
+    api_scene = ctx.finish()
+    api_cfg = RenderConfig(width=128, height=128, tile_height=16,
+                           tile_width=128, cmd_capacity=128)
+    for impl in ("entries", "dense"):
+        check(f"RenderContext scene 128x128 {impl}",
+              Renderer(api_cfg, dev, fine_impl=impl).render(api_scene),
+              cpu_render_scene(api_scene, api_cfg))
+
+    # The C++ golden rasterizer on the tiger's wire bytes, beside the card.
+    t0 = time.perf_counter()
+    wire = native.init_scene_from_svg(Path(TIGER_PATH).read_text(), 8.0)
+    golden, overflow = native.render_golden(
+        wire, cfg.width, cfg.height, tile_w=cfg.tile_width,
+        tile_h=cfg.tile_height, cmd_capacity=cfg.cmd_capacity)
+    n_bad = int((golden != tiger_png["entries"]).any(-1).sum())
+    print(f"native golden tiger 1664x1664 ({len(wire)} wire bytes, "
+          f"{time.perf_counter() - t0:.2f} s, overflow {overflow}): "
+          f"{n_bad} pixels differ from the card's frame", flush=True)
+    assert overflow == 0 and n_bad == 0
+
+    # Host staging: fit_capacities, build_seg_pre and prepare_scene (which
+    # runs build_seg_pre and uploads), host clock, median of 3.
+    for name, w, sc in (("tiger", 1664, scene),
+                        ("beziers_10k", 1024, get_scene("beziers_10k"))):
+        base = RenderConfig(width=w, height=w)
+        c = fit_capacities(sc, base, bucket=True)
+
+        def host_ms(fn):
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(times)
+
+        fit = host_ms(lambda: fit_capacities(sc, base, bucket=True))
+        seg = host_ms(lambda: build_seg_pre(sc, c))
+        prep = host_ms(lambda: prepare_scene(sc, c, dev))
+        print(f"host staging {name} {w}x{w} [{card}]: fit_capacities "
+              f"{fit:.3f} ms, build_seg_pre {seg:.3f} ms, prepare_scene "
+              f"{prep:.3f} ms (build_seg_pre, padding and upload; "
+              f"{sc.n_items} items, {sc.n_points} points; host clock, "
+              f"median of 3)", flush=True)
+    print(f"phase 7 (the command line): {time.perf_counter() - t_phase:.1f} "
+          f"s", flush=True)
+    return paths
 
 
 def plain_cand_stage(scene, cap, kw):

@@ -3,8 +3,9 @@
 A second package beside ``piet_tpu/`` (the JAX reference).  It imports
 ``torch`` and never ``jax``, and nothing of ``piet_tpu``: the numpy host
 layer -- configuration, scenes and geometry, the entry-stream word map,
-the CPU oracle, capacity fitting, the host segment stage, the PNG writer
--- is the port's own copy of the JAX package's modules, at the same
+the CPU oracle, capacity fitting, the host segment stage, the PNG writer,
+the wire format, the SVG loader and the drawing API (``api.py``) -- is
+the port's own copy of the JAX package's modules, at the same
 relative paths (``host.py`` re-exports it for scripts).  The device pass
 is ported:
 
@@ -26,6 +27,12 @@ is ported:
   scene/affine.py   -- make_affine_render_fn: any scene under affines of t
   scene/animate.py  -- make_animated_render_fn: the animated fixture at t
   kernels.py        -- nvcc build, ctypes load, launch counters
+  cli.py            -- python -m piet_tpu_torch: render, bench, animate,
+                       profile, goldens, dump, info (on the card; --cpu)
+  profiling.py      -- per-stage device times (graphed prefixes)
+  roofline.py       -- the H100's peaks and each stage's least time
+  native.py         -- the in-repo C++ library (cc/), built by the port
+  entry.py          -- the flagship step and its staged tiger
 
 Every kernel wrapper runs its plain-PyTorch version for a CPU tensor and
 launches its CUDA kernel (csrc/) for a CUDA tensor; nothing falls back.

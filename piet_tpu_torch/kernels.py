@@ -125,7 +125,7 @@ def library_path() -> Path:
     return BUILD_DIR / f"libpiet_kernels_{h.hexdigest()[:16]}.so"
 
 
-def _run_all(cmds) -> None:
+def run_all(cmds) -> None:
     """Run the commands in parallel; once all have ended, raise with the
     command line and output of the first that failed."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
@@ -134,8 +134,9 @@ def _run_all(cmds) -> None:
     outs = [p.communicate() for p in procs]
     for c, p, (out, err) in zip(cmds, procs, outs):
         if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({p.returncode}): "
-                               f"{' '.join(c)}\n{out}\n{err}")
+            raise RuntimeError(f"{os.path.basename(c[0])} failed "
+                               f"({p.returncode}): {' '.join(c)}\n{out}\n"
+                               f"{err}")
 
 
 def build() -> Path:
@@ -156,8 +157,8 @@ def build() -> Path:
                                                str(obj)])
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     try:
-        _run_all(compiles)
-        _run_all([[nvcc, "-shared", "-o", str(tmp)]
+        run_all(compiles)
+        run_all([[nvcc, "-shared", "-o", str(tmp)]
                   + [str(o) for o in objs]])
         os.replace(tmp, out)
     finally:

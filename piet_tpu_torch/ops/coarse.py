@@ -63,6 +63,46 @@ from .sort import stable_sort_multi
 _INF = float("inf")
 F32, I32 = torch.float32, torch.int32
 
+#: The stages of the pass, in order, under the JAX pass's probe names
+#: (``piet_tpu/profiling.py::STAGE_ORDER`` less "pairing", which is not
+#: ported).  A stage's probe holds its output tensors.  Where one kernel
+#: does several JAX stages, the probe stands after the kernel under the
+#: group's first name: kernel A is "cand_expand"; kernel B "hit_expand"
+#: (JAX's "hit_gather" and "hit_tests" too); the one-call keyed sums
+#: "cand_emit" (and "del_scatter").  "tile_reduce" runs to the end of the
+#: pass (the bail, and on the dense route the slot scatters).  The
+#: segment stages ("seg_expand" .. "seg_rects") run only where the
+#: segments are derived on the device; "runs" only on the entries route.
+PROBE_STAGES = ("cand_expand", "seg_expand", "seg_points", "seg_derive",
+                "seg_rects", "hit_expand", "cand_emit", "deltas", "rows",
+                "sort", "sorted_gather", "runs", "tile_reduce")
+
+
+class _StopAfter(Exception):
+    """Raised by a probe to end the pass right after stage ``upto``."""
+
+
+class _Probes:
+    """The pass's stage probes: off (no probe is kept), or an ordered dict
+    name -> the stage's output tensors, the pass ending after ``upto``."""
+
+    def __init__(self, on: bool, upto: Optional[str]):
+        if upto is not None and upto not in PROBE_STAGES:
+            raise ValueError(f"unknown stage {upto!r}; stages: "
+                             f"{PROBE_STAGES}")
+        self.found = {} if (on or upto is not None) else None
+        self.upto = upto
+
+    def __call__(self, name: str, *vals: torch.Tensor) -> None:
+        if self.found is None:
+            return
+        self.found[name] = vals
+        if name == self.upto:
+            raise _StopAfter(name)
+
+
+_NO_PROBES = _Probes(False, None)
+
 
 class SegPre(NamedTuple):
     """The segment stage on the device: staged from the host
@@ -230,7 +270,8 @@ def cand_stage(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
 
 def derive_seg_stage(scene: DeviceScene, item_pack: torch.Tensor, *,
                      tile_w: int, tile_h: int, max_segments: int,
-                     taps: Optional[dict] = None) -> SegPre:
+                     taps: Optional[dict] = None,
+                     probe: _Probes = _NO_PROBES) -> SegPre:
     """The segment stage derived on the device (``seg_pre=None``): a port
     of ``piet_tpu/ops/coarse.py:379-587``, expression for expression.
 
@@ -242,7 +283,8 @@ def derive_seg_stage(scene: DeviceScene, item_pack: torch.Tensor, *,
     which no record reads, keep the JAX device pass's words where the
     host stage writes zeros.)  Eager PyTorch rounds every product on its
     own, so the JAX pass's contraction barriers (``_bar``) have no
-    counterpart here.
+    counterpart here.  ``probe``: the pass's stage probes (see
+    :func:`coarse_rasterize`).
     """
     dev = item_pack.device
     NI = item_pack.shape[0]
@@ -267,6 +309,7 @@ def derive_seg_stage(scene: DeviceScene, item_pack: torch.Tensor, *,
     if taps is not None:
         taps["expand"] = (item_rows, seg_counts, max_segments, seg_excl)
     sitem = expand_rows(item_rows, seg_counts, max_segments, seg_excl)
+    probe("seg_expand", sitem)
     sitem_f = sitem.view(F32)
     seg_idx = torch.arange(max_segments, dtype=I32, device=dev)
     seg_valid = seg_idx < n_segs
@@ -285,6 +328,7 @@ def derive_seg_stage(scene: DeviceScene, item_pack: torch.Tensor, *,
         taps.setdefault("gatherm", []).append(
             ("endpoints", (sitem, scene.points, n_segs)))
     p0, p1 = gather_endpoints(sitem, scene.points, n_segs)
+    probe("seg_points", p0, p1)
     sx, sy = p0[:, 0], p0[:, 1]
     ex, ey = p1[:, 0], p1[:, 1]
     a = ey - sy
@@ -295,6 +339,7 @@ def derive_seg_stage(scene: DeviceScene, item_pack: torch.Tensor, *,
     s_hw = 0.5 * sitem_f[:, 9] + 0.5
     is_fill_seg = seg_valid & s_is_fill_tag
     is_stroke_seg = seg_valid & ((s_tag == TAG_POLY) | (s_tag == TAG_LINE))
+    probe("seg_derive", a, b, c, xmn, xmx)
 
     # ---- per-segment emission rects ------------------------------------
     # Fill: exact solve of the reference's extent conditions (tile dims
@@ -345,6 +390,7 @@ def derive_seg_stage(scene: DeviceScene, item_pack: torch.Tensor, *,
     r_w = W(widen, 1, r_w)
     hit_counts = W(seg_valid, r_w * r_h, 0)
     hit_excl, hit_incl = _exclusive_cumsum(hit_counts)
+    probe("seg_rects", hit_counts, hit_excl)
 
     seg_flags = (is_fill_seg.to(I32) | (is_stroke_seg.to(I32) << 1)
                  | (is_line_item.to(I32) << 2))
@@ -370,6 +416,17 @@ def derive_seg_stage(scene: DeviceScene, item_pack: torch.Tensor, *,
                   hit_excl=hit_excl, n_segs=n_segs, n_hits=hit_incl[-1:])
 
 
+def sort_key_bounds(n_tiles: int, n_items: int) -> tuple:
+    """The bounds of the pass's sort keys for ``n_tiles`` tiles and
+    ``n_items`` item slots: the packed key tile * 2*(NI+1) + item*2 +
+    class where it stays below 2^24 (exact in f32), else the two unpacked
+    keys (tile, item*2 + class), each exact on its own."""
+    stride = 2 * (n_items + 1)
+    if n_tiles * stride < 2 ** 24:
+        return (n_tiles * stride,)
+    return (n_tiles, 2 * n_items + 2)
+
+
 def _not_covered(what: str, item: str):
     raise NotImplementedError(
         f"{what} is not ported yet: see ROADMAP.md Queue 1, {item!r}")
@@ -380,7 +437,8 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
                      max_hits: int, max_candidates: int, row0: int = 0,
                      output: str = "entries",
                      cmd_capacity: Optional[int] = None, pair="off",
-                     taps: Optional[dict] = None):
+                     taps: Optional[dict] = None, with_probes: bool = False,
+                     upto: Optional[str] = None):
     """Bin ``scene`` into a ``tiles_y``-row slab starting at tile row
     ``row0``.
 
@@ -397,7 +455,36 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
     a list of (site, arguments) of ``gatherm.SITES``, one a call;
     "expand" on the device-derived segment stage) -- for tests and
     chip_smoke.py.
+
+    ``with_probes=True`` adds ``diag["probes"]``: name -> the output
+    tensors of each stage that ran (:data:`PROBE_STAGES`), in order.
+    ``upto=<stage>`` ends the pass right after that stage and returns
+    that dict (the stages so far), so a prefix of the pass is a step of
+    its own (piet_tpu_torch/profiling.py times them).  Neither changes
+    what the pass computes: without ``upto`` it runs the same device ops.
     """
+    probe = _Probes(with_probes, upto)
+    try:
+        out = _coarse_pass(scene, tiles_x=tiles_x, tiles_y=tiles_y,
+                           tile_w=tile_w, tile_h=tile_h,
+                           max_segments=max_segments, max_hits=max_hits,
+                           max_candidates=max_candidates, row0=row0,
+                           output=output, cmd_capacity=cmd_capacity,
+                           pair=pair, taps=taps, probe=probe)
+    except _StopAfter:
+        return probe.found
+    if upto is not None:
+        raise ValueError(f"stage {upto!r} does not run on this pass")
+    if with_probes:
+        out.diag["probes"] = probe.found
+    return out
+
+
+def _coarse_pass(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
+                 tile_w: int, tile_h: int, max_segments: int, max_hits: int,
+                 max_candidates: int, row0: int, output: str,
+                 cmd_capacity: Optional[int], pair, taps: Optional[dict],
+                 probe: _Probes):
     if output not in ("entries", "dense"):
         raise ValueError(f"unknown coarse output {output!r}")
     if output == "dense" and cmd_capacity is None:
@@ -409,10 +496,9 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
     n_tiles = tiles_x * tiles_y
     thf = float(tile_h)
     stride = 2 * (NI + 1)
-    # The packed key is exact in f32 below 2^24; past it the sort takes the
-    # unpacked keys (tile, item*2 + class), each exact on its own.
     assert n_tiles < 2 ** 24 and 2 * NI + 2 < 2 ** 24, "f32 key range"
-    packed_ok = n_tiles * stride < 2 ** 24
+    bounds = sort_key_bounds(n_tiles, NI)
+    packed_ok = len(bounds) == 1
     E = max_hits + max_candidates
     assert E % 128 == 0 and E < 2 ** 24, "entry capacity"
 
@@ -421,6 +507,7 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
                    tile_h=tile_h, row0=row0)
     ci_in, ca, cand_tile, cand_ty = cand_stage(scene, cap=max_candidates,
                                                **rect_kw)
+    probe("cand_expand", ca, cand_tile, cand_ty)
     n_cand = ci_in.total
     if taps is not None:
         taps["cand_inputs"] = (scene, rect_kw)
@@ -439,7 +526,8 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
     if sp is None:
         sp = derive_seg_stage(scene, ci_in.cand_pack[:, 15:24],
                               tile_w=tile_w, tile_h=tile_h,
-                              max_segments=max_segments, taps=taps)
+                              max_segments=max_segments, taps=taps,
+                              probe=probe)
     seg_rows = sp.seg_rows
     seg_f = seg_rows.view(F32)
     n_segs, n_hits = sp.n_segs, sp.n_hits
@@ -458,6 +546,7 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
     hit_rec = hit_records_fused(seg_rows, sp.hit_counts, sp.hit_excl,
                                 n_hits, row0, max_hits, **hit_kw)
     fused = split_fused(hit_rec)
+    probe("hit_expand", hit_rec)
 
     # ---- per-candidate command counts and winding deltas ---------------
     # Both keyed sums in one call on the records: n_cmds by h_cand, and
@@ -466,6 +555,7 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
         taps["keyed"] = (hit_rec, n_hits, max_candidates)
     cand_emit, delta_scatter = record_keyed_sums(hit_rec, n_hits,
                                                  max_candidates)
+    probe("cand_emit", cand_emit, delta_scatter)
 
     # ---- winding deltas -> backdrop ------------------------------------
     # Count-only diagnostic (rows whose top edge lies in [ymin, ymax]).
@@ -483,6 +573,7 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
         taps.setdefault("gatherm", []).append(
             ("backdrop", (csum, ca_i, cand_ty)))
     backdrop = backdrop_from_csum(csum, ca_i, cand_ty)
+    probe("deltas", backdrop)
 
     # ---- candidate tail commands ---------------------------------------
     c_tag_item = ci[:, 0]
@@ -588,6 +679,7 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
          torch.zeros((max_candidates, 1), dtype=I32, device=dev)],  # W_RUN
         dim=1)
     all_rows = torch.cat([hit_rows, cand_rows])
+    probe("rows", all_rows)
 
     # ---- global sort: key (tile, item, class), packed or unpacked -------
     # Kernel B gives the hit records' keys in the same mode (stride 0:
@@ -596,14 +688,12 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
         cand_key = W(cand_cmd_valid,
                      (cand_tile * stride + cand_item * 2 + 1).to(F32), _INF)
         all_keys = (torch.cat([fused["key"], cand_key]),)
-        bounds = (n_tiles * stride,)
     else:
         all_keys = (
             torch.cat([fused["tile"], W(cand_cmd_valid, cand_tile.to(F32),
                                          _INF)]),
             torch.cat([fused["key"], W(cand_cmd_valid,
                                        (cand_item * 2 + 1).to(F32), _INF)]))
-        bounds = (n_tiles, 2 * NI + 2)
     order_idx = torch.arange(E, dtype=I32, device=dev)
     if taps is not None:
         taps["sort"] = (all_keys, order_idx, bounds)
@@ -617,8 +707,10 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
         e_tile = torch.div(key_cap.to(I32), stride, rounding_mode="floor")
     else:
         e_tile = torch.clamp(sorted_keys[0], max=float(n_tiles)).to(I32)
+    probe("sort", e_tile, sorted_idx)
     e_rows = all_rows[sorted_idx.long()]
     stream16 = W(live[:, None], e_rows, 0)
+    probe("sorted_gather", stream16)
     e_meta = stream16[:, W_META].view(F32).to(I32)
     e_ncmds = e_meta & META_NCMDS_MASK
     e_is_opaque = (e_meta & META_OPAQUE_BIT) != 0
@@ -634,7 +726,7 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
         return _dense_ptcl(stream16, sorted_idx, live, e_tile, e_ncmds,
                            e_is_opaque, e_is_clear, c_color_bits, diag,
                            n_tiles=n_tiles, max_hits=max_hits,
-                           cmd_capacity=cmd_capacity)
+                           cmd_capacity=cmd_capacity, probe=probe)
 
     # ---- run words: remaining length of each same-class streak ---------
     sf = stream16.view(F32)
@@ -653,6 +745,7 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
     run_len = torch.clamp(next_b - eidxf, max=float(RUN_CAP))
     w_run = W(run_pf, run_len, W(run_ln, -run_len, 0.0))
     stream16 = torch.cat([stream16[:, :W_RUN], _bits(w_run)[:, None]], dim=1)
+    probe("runs", stream16)
 
     # ---- per-tile ranges, command totals and the bail ------------------
     cpos_excl, cpos_incl = _exclusive_cumsum(e_ncmds)
@@ -692,14 +785,17 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
     n_live = W(bail | ~has_entries, 0, last_raw - first_live + 1)
     first_live = W(n_live > 0, first_live, 0)
     diag["live_entries"] = n_live.sum()
-    return CoarseEntries(stream=stream16.view(F32), first=first_live.to(I32),
-                         n_entries=n_live.to(I32), counts=count_post.to(I32),
-                         solid=solid.to(I32), diag=diag)
+    out = CoarseEntries(stream=stream16.view(F32), first=first_live.to(I32),
+                        n_entries=n_live.to(I32), counts=count_post.to(I32),
+                        solid=solid.to(I32), diag=diag)
+    probe("tile_reduce", out.first, out.n_entries, out.solid)
+    return out
 
 
 def _dense_ptcl(rows, sorted_idx, live, e_tile, e_ncmds, e_is_opaque,
                 e_is_clear, c_color_bits, diag, *, n_tiles: int,
-                max_hits: int, cmd_capacity: int) -> CoarseOutput:
+                max_hits: int, cmd_capacity: int,
+                probe: _Probes = _NO_PROBES) -> CoarseOutput:
     """The sorted records -> dense (T, CAP) command lists: a port of the
     dense tail of ``piet_tpu/ops/coarse.py`` (per-tile f32 index maxima,
     command positions, the bail, and the two slot scatters).
@@ -793,6 +889,8 @@ def _dense_ptcl(rows, sorted_idx, live, e_tile, e_ncmds, e_is_opaque,
     tags = out_rows[:dump, 0].reshape(n_tiles, cap).contiguous()
     args = out_rows[:dump, 1:].reshape(n_tiles, cap * 12).contiguous()
     diag["live_cmds"] = counts.sum()
-    return CoarseOutput(tags=tags, args=args.view(F32), counts=counts.to(I32),
-                        solid=solid.to(I32), overflow=overflow.to(I32),
-                        diag=diag)
+    out = CoarseOutput(tags=tags, args=args.view(F32), counts=counts.to(I32),
+                       solid=solid.to(I32), overflow=overflow.to(I32),
+                       diag=diag)
+    probe("tile_reduce", out.tags, out.args, out.counts)
+    return out

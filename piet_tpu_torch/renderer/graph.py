@@ -29,6 +29,7 @@ tensors and runs the step eagerly.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Callable, Dict, List, Optional
 
 import torch
@@ -53,7 +54,8 @@ def _unflatten(spec, leaves):
     if spec is None:
         return None
     cls, kids = spec
-    return cls(*(_unflatten(k, leaves) for k in kids))
+    vals = [_unflatten(k, leaves) for k in kids]
+    return cls(vals) if cls is tuple else cls(*vals)
 
 
 class _Entry:
@@ -139,3 +141,43 @@ class CapturedStep:
             with torch.cuda.graph(graph):
                 out = self.fn(e.tree)
         e.graph, e.out, e.launches = graph, out, launches
+
+
+#: CUgraphNodeType values of the nodes that are device work (cuda.h).
+_DEVICE_NODES = {0: "kernel", 1: "memcpy", 2: "memset"}
+
+
+def device_ops(fn: Callable[[], object], device="cuda") -> List[str]:
+    """The device ops of one ``fn()`` (device work only, no host sync),
+    counted from a CUDA graph of it: after one eager call on a side
+    stream, ``fn`` is captured, and the kernel, memset and memcpy nodes
+    of the captured graph are listed in the order ``cuGraphGetNodes``
+    gives them.  Exact, where a profiler trace can drop
+    records; the launches are kept out of ``kernels.LAUNCHES``."""
+    dev = torch.device(device)
+    with kernels.launches_apart():
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph):
+            fn()
+    cuda = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cuda.cuGraphGetNodes(handle, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    kinds = []
+    for node in nodes[:n.value]:
+        kind = ctypes.c_int(-1)
+        if cuda.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                   ctypes.byref(kind)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        if kind.value in _DEVICE_NODES:
+            kinds.append(_DEVICE_NODES[kind.value])
+    return kinds

@@ -1,7 +1,7 @@
 """Fixture and benchmark scenes.
 
 The reference keeps three switchable fixtures of increasing complexity
-(src/lib.rs:256-284,369-373); we keep those plus the BASELINE.json
+(src/lib.rs:256-284,369-373); we keep those plus the driver BASELINE.json
 benchmark configs (1k circles + rounded-rect strokes, 10k random cubic
 Beziers, glyph page, animated scenes).
 """
@@ -139,8 +139,7 @@ def make_glyph_page(n_glyphs: int = 5000, size: int = 1024, seed: int = 3
 def _animated_params(size: int, n: int, seed: int):
     """The animated fixture's seeded (t-independent) random draws, in the
     exact numpy call order of the original builder loop.  Shared by the
-    Python per-frame builder and the device animation
-    (scene/animate.py)."""
+    Python and native (cc/src/fixtures.cc) per-frame builders."""
     rng = np.random.default_rng(seed)
     centers = rng.uniform(size * 0.1, size * 0.9, (n, 2))
     radii = rng.uniform(size * 0.02, size * 0.08, n)
@@ -148,6 +147,22 @@ def _animated_params(size: int, n: int, seed: int):
     color_hi = np.array([int(rng.integers(0, 1 << 24)) << 8
                          for _ in range(n)], np.uint32)
     return centers, radii, phases, color_hi
+
+
+def make_animated_frame_native(t: float, size: int = 1024, n: int = 200,
+                               seed: int = 5) -> Scene:
+    """Native (C++) per-frame build of the animated fixture -- the frame
+    critical path of the re-encode benchmark; ~150x the Python builder.
+    Bit-identical to make_animated_frame (tests/test_native.py)."""
+    from .. import native
+    global _ANIM_PARAMS
+    key = (size, n, seed)
+    if _ANIM_PARAMS.get("key") != key:
+        _ANIM_PARAMS = {"key": key, "params": _animated_params(size, n, seed)}
+    return native.animated_frame(t, *_ANIM_PARAMS["params"])
+
+
+_ANIM_PARAMS: dict = {}
 
 
 def make_animated_frame(t: float, size: int = 1024, n: int = 200,

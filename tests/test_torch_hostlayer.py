@@ -2,7 +2,7 @@
 original: scenes field by field, capacities, the host segment stage, the
 word-map and flag constants, and the oracle's images -- all bitwise.
 
-The port keeps its own copies (piet_tpu_torch/{config,geometry,scene,
+The port keeps its own copies (piet_tpu_torch/{config,api,geometry,scene,
 layout,raster,renderer,utils}) so that it imports nothing of the JAX
 package; these tests catch a copy that drifts from the reference.
 """
@@ -21,17 +21,14 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 
-#: Copied modules, by path relative to each package.
+#: Copied modules, by path relative to each package.  Every copy's text
+#: equals its original's.
 COPIES = ["config", "geometry.bezier", "geometry.path", "geometry.shapes",
           "geometry.svg_path", "scene.scene", "scene.color", "scene.svg",
-          "scene.fixtures", "layout.entry_stream", "raster.ptcl",
-          "raster.cpu_tiler", "raster.cpu_fine", "renderer.capacity",
-          "renderer.segstage", "utils.png"]
-
-#: Copies whose text differs from the original on purpose: the fixtures
-#: drop the native (C++) animated-frame builder, and their module doc
-#: one word.
-EDITED = {"scene.fixtures"}
+          "scene.fixtures", "scene.wire", "scene.svg_full", "api",
+          "layout.entry_stream", "raster.ptcl", "raster.cpu_tiler",
+          "raster.cpu_fine", "renderer.capacity", "renderer.segstage",
+          "utils.png"]
 
 
 def _pair(rel):
@@ -39,18 +36,11 @@ def _pair(rel):
             importlib.import_module(f"piet_tpu.{rel}"))
 
 
-@pytest.mark.parametrize("rel", sorted(set(COPIES) - EDITED))
+@pytest.mark.parametrize("rel", sorted(COPIES))
 def test_copied_module_source_unchanged(rel):
     path = rel.replace(".", "/") + ".py"
     assert ((ROOT / "piet_tpu_torch" / path).read_text()
             == (ROOT / "piet_tpu" / path).read_text())
-
-
-def test_fixtures_copy_drops_only_the_native_builder():
-    port, ref = _pair("scene.fixtures")
-    names = {n for n in vars(ref) if not n.startswith("__")}
-    assert names - {n for n in vars(port)} == {"make_animated_frame_native",
-                                              "_ANIM_PARAMS"}
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -66,9 +56,10 @@ def test_module_constants_equal(rel):
         a, b = getattr(port, name), getattr(ref, name)
         if dataclasses.is_dataclass(b):       # REFERENCE_CONFIG
             assert dataclasses.asdict(a) == dataclasses.asdict(b), name
-        elif isinstance(b, dict):             # name -> builder tables
+        elif isinstance(b, dict):   # name -> builder or colour tables
             assert a.keys() == b.keys(), name
-            assert all(a[k].__name__ == b[k].__name__ for k in b), name
+            assert all(a[k].__name__ == b[k].__name__ if callable(b[k])
+                       else a[k] == b[k] for k in b), name
         elif isinstance(b, np.ndarray):
             assert a.dtype == b.dtype, name
             np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8),

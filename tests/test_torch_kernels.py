@@ -26,6 +26,7 @@ from piet_tpu_torch.ops import (candfuse, coarse, expand, fine, fine_xla,
 from piet_tpu_torch.raster.cpu_fine import cpu_render_scene
 from piet_tpu_torch.raster.synth_ptcl import synth_dense_ptcl
 from piet_tpu_torch.renderer.capacity import fit_capacities
+from piet_tpu_torch.renderer.graph import device_ops as graph_device_ops
 from piet_tpu_torch.renderer.renderer import (Renderer, _solid_to_present_u32,
                                               device_scene_from_numpy,
                                               fetch_scene, make_render_fn,
@@ -491,25 +492,15 @@ def test_cuda_expand_equals_plain(case, words):
                                                         excl))
 
 
-def _device_ops(fn, traces: int = 3):
-    """The device ops of one ``fn()``: the longest of ``traces`` traces.
-    torch.profiler now and then drops a trace's kernel records (a
-    one-kernel call read 0 ops in some traces on the H100); a dropped
-    record only shortens a trace, and nothing adds one."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def _device_ops(fn):
+    """The device ops of one ``fn()``: the kernel, memset and memcpy
+    nodes of a CUDA graph of it (renderer/graph.py::device_ops).
+    torch.profiler traces dropped kernel records now and then on the
+    H100 (a one-kernel call read 0 ops, three calls 1 op in every trace),
+    so the exact counts below no longer rest on a trace."""
     fn()
     torch.cuda.synchronize()
-    best = []
-    for _ in range(traces):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        ops = [e.name for e in prof.events()
-               if e.device_type == DeviceType.CUDA]
-        best = max(best, ops, key=len)
-    return best
+    return graph_device_ops(fn)
 
 
 @pytest.mark.cuda
@@ -945,7 +936,7 @@ def test_cuda_candfuse_and_gatherm_device_ops(cuda_inputs):
     (one prep block: the tiger's 512 item slots) or two (cand_count
     first: beziers_10k's 28 blocks), and the coarse pass's call (rows and
     expansion) one more.  Counted over three back-to-back calls in one
-    trace."""
+    captured graph."""
     _, taps, _ = cuda_inputs
     scene, kw = taps["cand_inputs"]
     assert scene.tags.shape[0] <= candfuse.PREP_ITEMS
