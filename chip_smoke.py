@@ -30,8 +30,12 @@ and exits non-zero:
      and the affine tiger's, and the generic gather on the index streams
      of those three calls; keyed on the affine tiger's hit records
      (both of the coarse pass's sums in one call, read in place, and each
-     sum through the one-stream keyed_sum); fine_dense on the static
-     tiger's dense PTCL in both instantiations (fine_rasterize and fine_rasterize_xla), in the group
+     sum through the one-stream keyed_sum); kernel D's paired
+     instantiation on the tiger's and beziers_10k's compact and hole
+     streams; expand as pairing's compaction on both compact streams
+     (against the scatter and gather); fine_dense on the static
+     tiger's dense PTCL in both instantiations (fine_rasterize and
+     fine_rasterize_xla), in the group
      one on the three fixtures, in both on the tiger's at 16x16 tiles and
      on the synthetic PTCLs of raster/synth_ptcl.py (tile widths 16, 24,
      128; group commands first at slots 0-128, streaks across the chunk
@@ -56,6 +60,23 @@ and exits non-zero:
      at 1024^2 (Renderer.for_scene, bucketed) on both routes, bitwise
      against one oracle image each; beziers_10k's sort goes through the
      device-memory route (its launches are the sort's second path);
+  4e. entry pairing (ops/pairing.py) on the entries route, off, compact
+     and hole, at the tiger 1664^2 and beziers_10k 1024^2: each frame
+     bitwise against the oracle, the graphed frame against the eager
+     one, kernel D's paired instantiation launched once a frame and
+     expand once a compact frame; live entries, kernel D (paired against
+     run dispatch) and the graphed frame timed;
+  4f. row slabs (parallel/sharding.py): the tiger at 1664^2 over 4
+     contiguous slabs and over 2 slabs of 2 interleaved blocks, all on
+     this card (each mesh's slabs one CUDA graph), both routes, bitwise
+     against the one-slab graphed frame and the oracle; each slab derives
+     its segments at its row0 (expand and gatherm launched); ms per frame
+     beside the one-slab frame;
+  4g. the reference's headline scene, bench.py's make_tiger(scale=19.2)
+     at 3840x2160 with for_scene's bucketed capacities, both routes: the
+     graphed frame bitwise against the oracle and the eager frame;
+     graphed ms per frame, device busy, launches per kernel and the
+     phase's seconds;
   5. the device-animation paths, 2 frames each: the tiger under the
      affine spin/zoom at 1664^2 (make_affine_render_fn) and the animated
      fixture at 1024^2 (make_animated_render_fn).  Each frame must equal
@@ -96,7 +117,8 @@ and exits non-zero:
   7. the command line (``piet_tpu_torch.cli.main``, in this process, the
      launch counters reset before and read after each command): render
      of the tiger at 1664^2 on both routes and of the tiger's SVG file
-     at 1024^2; animate, 3 frames each, of the animated fixture (device
+     at 1024^2 (that render, animate and bench take the default route,
+     dense); animate, 3 frames each, of the animated fixture (device
      and host encode) and the affine tiger; goldens --tolerance 0 on both
      routes; bench of the tiger and of the re-encoded animated fixture
      (native builder) with its roofline; profile of the tiger at 1664^2
@@ -111,7 +133,10 @@ and exits non-zero:
 The line before the last is the kernel table as JSON, each kernel with
 the path whose run gave its launch count (and, under "paths", every path
 read: sort's second is the beziers_10k frame), the sort with its
-device-memory route's times; the last line is {"ok": true,
+device-memory route's times, kernel D's paired instantiation
+("fine_paired") and expand as pairing's compaction ("expand_pairing")
+with the launches of phase 4e's paired frames; the last line is
+{"ok": true,
 "device": {...}}.  Exits non-zero without a result when no CUDA device is
 present.
 """
@@ -119,6 +144,7 @@ present.
 import itertools
 import json
 import math
+import os
 import re
 import statistics
 import sys
@@ -537,7 +563,7 @@ def main() -> int:
     from piet_tpu_torch import kernels
     from piet_tpu_torch.host import cpu_render_scene, make_tiger
     from piet_tpu_torch.ops import (candfuse, coarse, expand, fine, fine_xla,
-                                    gatherm, hitfuse, keyed, sort)
+                                    gatherm, hitfuse, keyed, pairing, sort)
     from piet_tpu_torch.raster.synth_ptcl import synth_dense_ptcl
     from piet_tpu_torch.renderer.renderer import (Renderer,
                                                   _solid_to_present_u32,
@@ -556,7 +582,8 @@ def main() -> int:
     dev = torch.device("cuda")
     scene = make_tiger()
     renderer = Renderer.for_scene(scene, 1664, 1664, tile_height=32,
-                                  tile_width=128, device=dev)
+                                  tile_width=128, device=dev,
+                                  fine_impl="entries")
     cfg = renderer.config
     staged = renderer.prepare(scene)
     ckw = coarse_kw(cfg)
@@ -663,6 +690,26 @@ def main() -> int:
         if bucket:
             cand_scenes.append(t["cand_inputs"])
             cand_caps.append(br.config.max_candidates)
+    # Kernel D's paired instantiation and expand as pairing's compaction:
+    # the tiger's and beziers_10k's (bucketed) streams in both modes, and
+    # the compaction's bundle and keep counts of each compact pass.
+    bez_r = Renderer.for_scene(bez, 1024, 1024, device=dev,
+                               fine_impl="entries")
+    pair_cases, pair_bundles = [], []
+    for tag, st, c in (("tiger 1664x1664", staged, cfg),
+                       ("beziers_10k 1024x1024", bez_r.prepare(bez),
+                        bez_r.config)):
+        for mode in ("compact", "hole"):
+            pt = {}
+            ce = coarse.coarse_rasterize(st, pair=mode, taps=pt,
+                                         **coarse_kw(c))
+            pair_cases.append((f"{tag} {mode}", (
+                ce.first, ce.n_entries, _solid_to_present_u32(ce.solid),
+                ce.stream), dict(tile_h=c.tile_height, tile_w=c.tile_width,
+                                 tiles_x=c.tiles_x, paired=True)))
+            if mode == "compact":
+                bundle, keep = pt["pairing"]
+                pair_bundles.append((bundle, keep))
     gen = torch.Generator(device=dev).manual_seed(4)
 
     def random_case(n, n_keys):
@@ -750,6 +797,19 @@ def main() -> int:
                        + k_n_live + int((k_dval[:k_n_live] != 0).sum())
                        + 1 + 2 * k_out)
     gather_bytes = gather_call_bytes(gather_calls)
+    # Kernel D's paired instantiation on the tiger's compact stream: the
+    # same image and command count as the unpaired stream, fewer entries.
+    pf_args, pf_kw = pair_cases[0][1], pair_cases[0][2]
+    pair_fine_bytes = (nbytes(*pf_args[:3])
+                       + row_bytes(int(pf_args[1].sum()), pf_args[3])
+                       + img_bytes)
+    # The compaction on the tiger's compact pass: the keep counts read,
+    # each kept row read once, every output row written.
+    pb, pk = pair_bundles[0]
+    pk_i = pk.to(torch.int32)
+    pk_n = int(pk.sum())
+    pair_exp_bytes = (nbytes(pk_i) + pk_n * pb.shape[1] * 4
+                      + pb.shape[0] * pb.shape[1] * 4)
 
     table = {
         "candfuse": dict(
@@ -811,6 +871,37 @@ def main() -> int:
             library=None,
             bytes=fine_bytes,
             ops=fine_cmds * tile_px * FINE_OPS_PER_PIXEL_CMD),
+        # The paired instantiation on the four paired streams; timed on
+        # the tiger's compact stream (the "fine" row's is its unpaired
+        # stream, on the run dispatch).
+        "fine_paired": dict(
+            route="cuda", source="piet_tpu_torch/csrc/fine.cu",
+            replaces="piet_tpu/ops/fine.py:245",
+            run=lambda: tuple(fine.fine_rasterize_entries(*a, **k)
+                              for _, a, k in pair_cases),
+            plain=lambda: tuple(fine.fine_rasterize_entries_plain(*a, **k)
+                                for _, a, k in pair_cases),
+            time=lambda: (fine.fine_rasterize_entries(*pf_args, **pf_kw),),
+            time_plain=lambda: (fine.fine_rasterize_entries_plain(
+                *pf_args, **pf_kw),),
+            library=None,
+            bytes=pair_fine_bytes,
+            ops=fine_cmds * tile_px * FINE_OPS_PER_PIXEL_CMD),
+        # Pairing's compaction: the expand kernel with 0/1 counts, against
+        # the pairing's plain version (the scatter and gather).
+        "expand_pairing": dict(
+            route="cuda", source="piet_tpu_torch/csrc/expand.cu",
+            replaces="piet_tpu/ops/expand.py:81",
+            run=lambda: tuple(pairing.compact_rows(b, k)
+                              for b, k in pair_bundles),
+            plain=lambda: tuple(pairing.compact_rows_plain(b, k)
+                                for b, k in pair_bundles),
+            time=lambda: (pairing.compact_rows(pb, pk),),
+            time_plain=lambda: (pairing.compact_rows_plain(pb, pk),),
+            library=lambda: F.pad(torch.repeat_interleave(
+                pb, pk_i, dim=0, output_size=pk_n),
+                (0, 0, 0, pb.shape[0] - pk_n)),
+            bytes=pair_exp_bytes),
         "expand": dict(
             route="cuda", source="piet_tpu_torch/csrc/expand.cu",
             replaces="piet_tpu/ops/expand.py:81",
@@ -903,7 +994,7 @@ def main() -> int:
     golds = {}
     for (w, h) in ((1664, 1664), (3840, 2160)):
         r = Renderer.for_scene(scene, w, h, tile_height=32, tile_width=128,
-                               device=dev)
+                               device=dev, fine_impl="entries")
         kernels.reset_launches()
         img = r.render(scene)
         torch.cuda.synchronize()
@@ -921,7 +1012,8 @@ def main() -> int:
         # the entries route runs no dense interpreter.
         assert launches["expand"] == launches["fine_dense"] == 0, launches
         assert all(v > 0 for k, v in launches.items()
-                   if k not in ("expand", "fine_dense")), launches
+                   if k not in ("expand", "fine_dense", "fine_paired")), \
+            launches
         assert launches["keyed"] == 1, launches
         # Kernel A one call (rows and expansion), gatherm one (backdrop).
         assert launches["candfuse"] == launches["gatherm"] == 1, launches
@@ -947,7 +1039,7 @@ def main() -> int:
         assert launches["fine_dense"] > 0 and launches["fine"] == 0, launches
         assert launches["expand"] == 0, launches
         assert all(v > 0 for k, v in launches.items()
-                   if k not in ("expand", "fine")), launches
+                   if k not in ("expand", "fine", "fine_paired")), launches
     for name, gr in group_renderers.items():
         sc = group_scenes[name]
         kernels.reset_launches()
@@ -974,7 +1066,8 @@ def main() -> int:
           f"launches {dict(kernels.LAUNCHES)}; overflow "
           f"{int(stats['overflow_cmds'])}", flush=True)
     assert n_bad == 0 and int(stats["overflow_cmds"]) == 0
-    assert all(v > 0 for k, v in kernels.LAUNCHES.items() if k != "fine")
+    assert all(v > 0 for k, v in kernels.LAUNCHES.items()
+               if k not in ("fine", "fine_paired"))
     # The renderer's other entry points on host-built animated frames.
     from piet_tpu_torch.scene.fixtures import make_animated_frame
     frames = [make_animated_frame(t) for t in T_FRAMES]
@@ -1044,6 +1137,150 @@ def main() -> int:
             plan = sort.sort_plan(n_pairs, b)
             assert plan.cluster == 0, plan
 
+    # ---- 4e. entry pairing on the entries route ------------------------
+    t_phase = time.perf_counter()
+    pair_launches = {}
+    for tag, sc, c, gold in (
+            ("tiger 1664x1664", scene, cfg, golds[1664, 1664]),
+            ("beziers_10k 1024x1024", bez, bez_r.config,
+             baseline_gold["beziers_10k"])):
+        for mode in ("off", "compact", "hole"):
+            # The mode is read from PIET_PAIR when the renderer is built.
+            os.environ["PIET_PAIR"] = mode
+            r = Renderer(c, dev, fine_impl="entries")
+            del os.environ["PIET_PAIR"]
+            kernels.reset_launches()
+            img = r.render(sc)
+            torch.cuda.synchronize()
+            launches = pair_launches[tag, mode] = dict(kernels.LAUNCHES)
+            n_bad = int((img != gold).any(-1).sum())
+            live = r.last_stats["live_entries"]
+            print(f"render pairing {mode} {tag}: {n_bad} pixels differ from "
+                  f"the numpy oracle; live entries {live}; launches "
+                  f"{launches}", flush=True)
+            assert n_bad == 0, f"pairing {mode} {tag} differs"
+            # Kernel D's paired instantiation counts as "fine_paired".
+            assert launches["fine"] == (mode == "off"), launches
+            assert launches["fine_paired"] == (mode != "off"), launches
+            assert launches["expand"] == (mode == "compact"), launches
+            graph_check(f"pairing {mode} {tag}", rgba(r.render_u32(sc)),
+                        rgba(r.render_device(r.prepare(sc))[0]), gold)
+            ce = coarse.coarse_rasterize(r.prepare(sc), pair=mode,
+                                         **coarse_kw(c))
+            fa = (ce.first, ce.n_entries, _solid_to_present_u32(ce.solid),
+                  ce.stream)
+            fk = dict(tile_h=c.tile_height, tile_w=c.tile_width,
+                      tiles_x=c.tiles_x, paired=mode != "off")
+            t_fine = time_ms(lambda: fine.fine_rasterize_entries(*fa, **fk),
+                             reps=20, warm=2)
+            staged_in = r._staged
+            t_lat = frame_ms(lambda: r._render.flat(staged_in), reps=20)
+            t_dev = time_ms(lambda: r._render.flat(staged_in), reps=10,
+                            warm=2, spin=8 * SPIN_CYCLES)
+            how = ("paired instantiation" if mode != "off"
+                   else "run dispatch")
+            print(f"timing pairing {mode} {tag} [{card}]: live entries "
+                  f"{live}; kernel D {t_fine:.4f} ms device ({how}"
+                  f"); graphed frame {t_lat:.3f} ms latency (median of 20), "
+                  f"{t_dev:.3f} ms device behind a spin", flush=True)
+            if tag.startswith("tiger") and mode != "off":
+                d_e = r.prepare(sc)
+                graph_cell(card, f"pairing {mode} {tag}",
+                           lambda: r.render_device(d_e),
+                           lambda: r._render.flat(staged_in))
+    print(f"phase 4e (pairing): {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # ---- 4f. row slabs on this card -------------------------------------
+    from piet_tpu_torch.parallel import ShardedRenderer
+    from piet_tpu_torch.renderer.renderer import prepare_scene
+    t_phase = time.perf_counter()
+    d_slab = prepare_scene(scene, cfg, "cpu", seg_pre=False)
+    for impl in ("dense", "entries"):
+        r1 = Renderer(cfg, dev, fine_impl=impl)
+        one = rgba(r1.render_u32(scene))
+        one_in = r1._staged
+        t_one = frame_ms(lambda: r1._render.flat(one_in), reps=20)
+        # The one-slab frame with its segments derived on the card, as
+        # every slab derives them (the step's second signature).
+        one_dv = r1._render.stage(d_slab)
+        t_one_dv = frame_ms(lambda: r1._render.flat(one_dv), reps=20)
+        for n, il in ((4, 1), (2, 2)):
+            sr = ShardedRenderer(cfg, ["cuda:0"] * n, fine_impl=impl,
+                                 interleave=il)
+            kernels.reset_launches()
+            img = sr.render(scene)
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+            n_one = int((img != one).any(-1).sum())
+            n_gold = int((img != golds[1664, 1664]).any(-1).sum())
+            slabs = n * il
+            print(f"render slabs tiger 1664x1664 {impl}, {n} slabs"
+                  f"{f' of {il} interleaved blocks' if il > 1 else ''} on "
+                  f"cuda:0: {n_one} pixels differ from the one-slab graphed "
+                  f"frame, {n_gold} from the numpy oracle; launches "
+                  f"{launches}; max_tile_cmds per slab "
+                  f"{sr.last_stats['max_tile_cmds'].tolist()}", flush=True)
+            assert n_one == 0 and n_gold == 0, f"slabs {impl} {n} {il}"
+            assert launches["expand"] == slabs, launches
+            assert launches["gatherm"] == 2 * slabs, launches
+            assert launches["fine" if impl == "entries"
+                            else "fine_dense"] == slabs, launches
+            assert sr._render.n_graphs() == 1
+            sd = sr._render.stage(d_slab)
+            t_sh = frame_ms(lambda: sr._render(sd), reps=20)
+            tr = trace_frames(lambda: sr._render(sd))
+            print(f"timing slabs tiger 1664x1664 {impl}, {n} x {il} "
+                  f"[{card}]: {t_sh:.3f} ms/frame graphed (one replay, "
+                  f"{slabs} slabs, reassembly included; median of 20; "
+                  f"device busy {tr['busy_ms']:.3f} ms/frame, "
+                  f"{tr['ops']:.0f} device ops, profiler on) against "
+                  f"{t_one:.3f} ms/frame one slab ({t_one_dv:.3f} with its "
+                  f"segments derived on the card)", flush=True)
+    print(f"phase 4f (row slabs): {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # ---- 4g. the headline scene: the 19.2x tiger at 3840x2160 -----------
+    t_phase = time.perf_counter()
+    head = make_tiger(scale=19.2)
+    head_gold = None
+    for impl in ("dense", "entries"):
+        r = Renderer.for_scene(head, 3840, 2160, tile_height=32,
+                               tile_width=128, device=dev, fine_impl=impl)
+        c = r.config
+        if head_gold is None:
+            n_pairs = c.max_hits + c.max_candidates
+            plan = sort.sort_plan(n_pairs, coarse.sort_key_bounds(
+                c.n_tiles, c.max_items))
+            t0 = time.perf_counter()
+            head_gold = cpu_render_scene(head, c)
+            print(f"config headline tiger 19.2x 3840x2160: items "
+                  f"{head.n_items} points {head.n_points}; E = {n_pairs} "
+                  f"({'cluster' if plan.cluster else 'device-memory'} sort "
+                  f"route); cmd_capacity {c.cmd_capacity}; tiles "
+                  f"{c.n_tiles}; oracle {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+        kernels.reset_launches()
+        img = rgba(r.render_u32(head))
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        graph_check(f"headline tiger 19.2x 3840x2160 {impl}", img,
+                    rgba(r.render_device(r.prepare(head))[0]), head_gold)
+        st = r.last_stats
+        head_in = r._staged
+        t_lat = frame_ms(lambda: r._render.flat(head_in), reps=20)
+        tr = trace_frames(lambda: r._render.flat(head_in))
+        print(f"headline tiger 19.2x 3840x2160 {impl} [{card}]: graphed "
+              f"{t_lat:.3f} ms/frame (median of 20, CUDA events); device "
+              f"busy {tr['busy_ms']:.3f} ms/frame, busy share "
+              f"{tr['share']:.3f}, {tr['ops']:.0f} device ops (profiler "
+              f"on); launches {launches}; bail tiles {st['bail_tiles']}, "
+              f"max per tile {st['max_tile_cmds']}", flush=True)
+        assert all(launches[k] > 0 for k in (
+            ENTRIES_KERNELS if impl == "entries" else DENSE_KERNELS))
+    print(f"phase 4g (headline): {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
     # ---- 5. the device-animation paths ---------------------------------
     anim_launches, anim_golds = {}, {}
     for tag, c, render_t, ni, npts in (
@@ -1080,7 +1317,7 @@ def main() -> int:
               flush=True)
         assert launches["fine_dense"] == 0, launches
         assert all(v > 0 for k, v in launches.items()
-                   if k != "fine_dense"), launches
+                   if k not in ("fine_dense", "fine_paired")), launches
         # Per frame: kernel A one call, gatherm two (endpoints, backdrop).
         assert launches["candfuse"] == len(T_FRAMES), launches
         assert launches["gatherm"] == 2 * len(T_FRAMES), launches
@@ -1255,7 +1492,8 @@ def main() -> int:
     for name, k in table.items():
         k["ms"] = time_ms(k.get("time", k["run"]), reps=20, warm=2)
         # The plain interpreters take seconds a call: few reps.
-        plain_reps = {"fine": 3, "fine_dense": 1}.get(name, 20)
+        plain_reps = {"fine": 3, "fine_paired": 3,
+                      "fine_dense": 1}.get(name, 20)
         k["plain_ms"] = time_ms(k.get("time_plain", k["plain"]),
                                 reps=plain_reps, warm=0 if plain_reps == 1
                                 else 1)
@@ -1364,7 +1602,18 @@ def main() -> int:
     # device-memory route.
     paths = {name: [("affine tiger 1664x1664, 2 frames, entries route",
                      anim_launches["affine tiger 1664x1664"][name])]
-             for name in table}
+             for name in table if name in kernels.LAUNCHES}
+    # The paired instantiation and the compaction: phase 4e's paired
+    # frames (a static frame launches expand only to compact).
+    paths["fine_paired"] = [
+        (f"{tag}, 1 frame, entries route, pairing {mode}",
+         pair_launches[tag, mode]["fine_paired"])
+        for tag in ("tiger 1664x1664", "beziers_10k 1024x1024")
+        for mode in ("compact", "hole")]
+    paths["expand_pairing"] = [
+        (f"{tag}, 1 frame, entries route, pairing compact",
+         pair_launches[tag, "compact"]["expand"])
+        for tag in ("tiger 1664x1664", "beziers_10k 1024x1024")]
     paths["fine_dense"] = [("static tiger 1664x1664, 1 frame, dense route",
                             dense_launches[1664, 1664]["fine_dense"])]
     paths["sort"].append((
@@ -1515,10 +1764,10 @@ def phase_cli(card, dev, scene, cfg, tiger_gold, aff_render, aff_ni,
     svg = Path(TIGER_PATH)
     png = out / "tiger_svg.png"
     run_cli(["render", "--svg", str(svg), "--width", "1024", "--height",
-             "1024", "--out", str(png)], ENTRIES_KERNELS, ("fine_dense",),
-            paths)
+             "1024", "--out", str(png)], DENSE_KERNELS, ("fine",), paths)
     svg_scene = load_svg_file(str(svg), scale=None, target_width=1024)
-    check("render --svg tiger 1024x1024 entries", read_png(str(png)),
+    check("render --svg tiger 1024x1024 (the default route, dense)",
+          read_png(str(png)),
           cpu_render_scene(svg_scene, cli._config_for(ns(1024, 1024),
                                                       svg_scene)))
 
@@ -1539,9 +1788,9 @@ def phase_cli(card, dev, scene, cfg, tiger_gold, aff_render, aff_ni,
              [fetch_scene(aff_render.scene_at(t), aff_ni, aff_np)
               for t in ts], 1664)):
         d = out / tag.replace(" ", "_").replace(",", "")
-        lines = run_cli(anim + argv + ["--outdir", str(d)], ENTRIES_KERNELS
+        lines = run_cli(anim + argv + ["--outdir", str(d)], DENSE_KERNELS
                         + (() if "host" in tag else ("expand",)),
-                        ("fine_dense",), paths)
+                        ("fine",), paths)
         print(f"cli animate {tag}: {lines[-2]} {lines[-1]}", flush=True)
         for i, fr in enumerate(frames):
             check(f"animate {tag} frame {i} (t={ts[i]:.4f})",
@@ -1560,7 +1809,7 @@ def phase_cli(card, dev, scene, cfg, tiger_gold, aff_render, aff_ni,
     for argv in (["bench", "--scene", "tiger", "--width", "1664", "--height",
                   "1664"],
                  ["bench", "--scene", "animated", "--reencode"]):
-        lines = run_cli(argv, ENTRIES_KERNELS, (), paths)
+        lines = run_cli(argv, DENSE_KERNELS, ("fine",), paths)
         print("\n".join(f"cli bench: {ln}" for ln in lines[-3:]), flush=True)
         roofs.append(json.loads(lines[-3])["roofline"])
 

@@ -44,6 +44,17 @@
 //   remaining length of its streak of same-class entries in the tile;
 //   the streak runs in a loop without tag checks, in stream order.
 // - Dense tiles first (fine_common.cuh's tile_order, a second launch).
+//
+// The paired instantiation (kPaired, ``paired`` != 0) reads a paired
+// stream (ops/pairing.py), whose W_RUN words are not set: no run
+// dispatch, every entry dispatched on its tags, on the same stackless
+// state until the first group command.  An F2 entry (a fill in each
+// slot) applies its slot-0 fill before its slot-1 fill, the oracle's
+// order of the area adds; an L2 entry's slot-1 line holds [sx, sy, ex,
+// ey, inv_denom] in slot-1 words 0-4 and is read with word 5 taken from
+// word 4; an all-zero hole entry matches no tag and changes nothing.
+// Pairing only merges entries of one tile, so a tile's range never
+// starts inside a pair.
 #include "fine_common.cuh"
 
 namespace {
@@ -58,8 +69,9 @@ template <int R>
 using Span = PixelState<true>[R];
 
 // One entry on the thread's R pixels; w holds its 16 words.  kCov: with
-// the clip-coverage multiply (after a group command).
-template <bool kCov, int R>
+// the clip-coverage multiply (after a group command).  kPaired: an entry
+// of a paired stream (F2 and L2 entries).
+template <bool kCov, bool kPaired, int R>
 __device__ __forceinline__ void apply_entry(Span<R>& s,
                                             const float (&w)[ENTRY_WORDS]) {
   const float* a0 = w + W_S0_ARG;  // slot-0 operand words 0..11
@@ -68,11 +80,21 @@ __device__ __forceinline__ void apply_entry(Span<R>& s,
   if (tag0 == CMD_LINE) {
 #pragma unroll
     for (int k = 0; k < R; ++k) s[k].line(a0);
+    if (kPaired && w[W_S1_TAG] == (float)CMD_LINE) {
+      // line_field_sq reads words 0-3 and 5 (inv_denom).
+      const float l1[6] = {a1[0], a1[1], a1[2], a1[3], a1[4], a1[4]};
+#pragma unroll
+      for (int k = 0; k < R; ++k) s[k].line(l1);
+    }
   } else if (tag0 == CMD_FILL_EDGE) {
 #pragma unroll
     for (int k = 0; k < R; ++k) s[k].fill_edge(a0);
   }
   if (w[W_S1_TAG] == (float)CMD_FILL) {
+    if (kPaired && tag0 == CMD_FILL) {
+#pragma unroll
+      for (int k = 0; k < R; ++k) s[k].fill(a0);
+    }
 #pragma unroll
     for (int k = 0; k < R; ++k) s[k].fill(a1);
   }
@@ -134,8 +156,8 @@ __device__ __forceinline__ void apply_entry(Span<R>& s,
 
 // Entries [e, cnt) of a staged chunk.  Without the coverage multiply
 // (kCov = false) it stops at the first group command and returns its
-// index; otherwise it returns cnt.
-template <bool kCov, int R>
+// index; otherwise it returns cnt.  kPaired: no run dispatch.
+template <bool kCov, bool kPaired, int R>
 __device__ __forceinline__ int run_chunk(Span<R>& s,
                                          const float4* __restrict__ ents,
                                          int e, int cnt) {
@@ -152,7 +174,7 @@ __device__ __forceinline__ int run_chunk(Span<R>& s,
     }
     const int tag0 = (int)w[W_S0_TAG];
     if (!kCov && tag0 >= CMD_BEGIN_CLIP && tag0 <= CMD_END_LAYER) return e;
-    const float run = w[W_RUN];
+    const float run = kPaired ? 0.f : w[W_RUN];
     if (run != 0.f) {
       const int len = min((int)fabsf(run), cnt - e);
       if (run > 0.f) {  // slot-1 fills only: words 9..13
@@ -173,14 +195,14 @@ __device__ __forceinline__ int run_chunk(Span<R>& s,
       e += len;
       continue;
     }
-    apply_entry<kCov, R>(s, w);
+    apply_entry<kCov, kPaired, R>(s, w);
     ++e;
   }
   return cnt;
 }
 
 // Block i: band (i % per_tile) of tile order[i / per_tile].
-template <int R>
+template <bool kPaired, int R>
 __global__ void __launch_bounds__(THREADS)
 fine_entries_kernel(const int* __restrict__ first,
                     const int* __restrict__ n_entries,
@@ -237,14 +259,14 @@ fine_entries_kernel(const int* __restrict__ first,
     const int cnt = min(CHUNK, n - c * CHUNK);
     int e = 0;
     if (!cov) {
-      e = run_chunk<false, R>(s, ents[c & 1], 0, cnt);
+      e = run_chunk<false, kPaired, R>(s, ents[c & 1], 0, cnt);
       cov = e < cnt;
       if (cov) {
 #pragma unroll
         for (int k = 0; k < R; ++k) s[k].init_stacks(1.f);
       }
     }
-    if (cov) run_chunk<true, R>(s, ents[c & 1], e, cnt);
+    if (cov) run_chunk<true, kPaired, R>(s, ents[c & 1], e, cnt);
     __syncthreads();  // buffer c & 1 is free for chunk c + 2
   }
 #pragma unroll
@@ -256,11 +278,12 @@ fine_entries_kernel(const int* __restrict__ first,
 }  // namespace
 
 // order: n_tiles ints of scratch for the dense-first tile order.
+// paired: nonzero for a paired stream (the paired instantiation).
 extern "C" int piet_fine_entries(const void* first, const void* n_entries,
                                  const void* present, const void* stream_p,
                                  void* order, void* out, int n_tiles,
                                  int tiles_x, int tile_w, int tile_h,
-                                 int row0, cudaStream_t stream) {
+                                 int row0, int paired, cudaStream_t stream) {
   if (n_tiles <= 0) return 0;
   if (tile_w <= 0 || tile_h <= 0 || tile_w > 1024 || order == nullptr)
     return (int)cudaErrorInvalidValue;
@@ -272,8 +295,11 @@ extern "C" int piet_fine_entries(const void* first, const void* n_entries,
   const cudaError_t err = launch_tile_order(ne, n_tiles, 0x7FFFFFFF, ord,
                                             stream);
   if (err != cudaSuccess) return (int)err;
-  const auto kernel = b.r == 8 ? fine_entries_kernel<8>
-                               : fine_entries_kernel<4>;
+  const auto kernel =
+      paired ? (b.r == 8 ? fine_entries_kernel<true, 8>
+                         : fine_entries_kernel<true, 4>)
+             : (b.r == 8 ? fine_entries_kernel<false, 8>
+                         : fine_entries_kernel<false, 4>);
   kernel<<<n_tiles * b.per_tile, dim3(b.bx, b.ny), 0, stream>>>(
       static_cast<const int*>(first), ne,
       static_cast<const unsigned*>(present),

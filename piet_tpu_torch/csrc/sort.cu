@@ -583,7 +583,9 @@ sort_pass(const Sched s, const PassArgs a, const int* __restrict__ val,
   }
 }
 
-bool g_cluster_attrs = false;
+// Devices (bit = ordinal) whose sort_cluster attributes are set: an
+// attribute belongs to the device that was current when it was set.
+unsigned long long g_cluster_attrs = 0;
 
 }  // namespace
 
@@ -627,7 +629,10 @@ extern "C" int piet_sort(const void* key0, const void* key1, const void* val,
     if (cluster > CLUSTER_MAX || chunk < 1 || chunk > CHUNK_MAX ||
         (long long)cluster * chunk < n)
       return (int)cudaErrorInvalidValue;
-    if (!g_cluster_attrs) {
+    int cur = 0;
+    if ((err = cudaGetDevice(&cur)) != cudaSuccess) return (int)err;
+    const unsigned long long bit = 1ull << (cur & 63);
+    if (!(g_cluster_attrs & bit)) {
       err = cudaFuncSetAttribute(sort_cluster,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  (int)cluster_smem(CHUNK_MAX));
@@ -635,7 +640,7 @@ extern "C" int piet_sort(const void* key0, const void* key1, const void* val,
       err = cudaFuncSetAttribute(
           sort_cluster, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
       if (err != cudaSuccess) return (int)err;
-      g_cluster_attrs = true;
+      g_cluster_attrs |= bit;
     }
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(cluster);

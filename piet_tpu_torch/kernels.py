@@ -47,8 +47,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: Launches per kernel wrapper (one per wrapper call that launched its
 #: kernel).  Plain-version calls never count.
+#: Kernel D counts its paired instantiation ("fine_paired") apart from
+#: its run dispatch ("fine").
 LAUNCHES = {"candfuse": 0, "hitfuse": 0, "sort": 0, "fine": 0, "expand": 0,
-            "keyed": 0, "gatherm": 0, "fine_dense": 0}
+            "keyed": 0, "gatherm": 0, "fine_dense": 0, "fine_paired": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -60,7 +62,7 @@ _SIGNATURES = {
     "piet_hitfuse": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "piet_sort": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P,
                   _P],
-    "piet_fine_entries": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "piet_fine_entries": [_P] * 6 + [_I] * 6 + [_P],
     "piet_expand": [_P, _P, _P, _P, _I, _I, _I, _P],
     "piet_keyed": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                    _I, _P],
@@ -181,15 +183,23 @@ def library() -> ctypes.CDLL:
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:
-    """True when the tensors lie on a CUDA device (launch the kernel),
-    False when they lie on the CPU (run the plain version).  Raises for
-    any other device or a mix of devices."""
-    types = {t.device.type for t in tensors}
+    """True when the tensors lie on the current CUDA device (launch the
+    kernel on its current stream), False when they lie on the CPU (run
+    the plain version).  Raises for any other device, a mix of devices,
+    or a CUDA device that is not the current one (a caller on another
+    card runs under ``torch.cuda.device``, as renderer/graph.py's steps
+    do)."""
+    devices = {t.device for t in tensors}
+    types = {d.type for d in devices}
     if types == {"cpu"}:
         return False
-    if types == {"cuda"}:
-        return True
-    raise ValueError(f"kernel inputs on unsupported devices: {types}")
+    if types != {"cuda"}:
+        raise ValueError(f"kernel inputs on unsupported devices: {types}")
+    current = torch.device("cuda", torch.cuda.current_device())
+    if devices != {current}:
+        raise ValueError(f"kernel inputs on {sorted(map(str, devices))}, "
+                         f"but the current device is {current}")
+    return True
 
 
 def check_cuda_tensor(t: torch.Tensor, dtype: torch.dtype, name: str,

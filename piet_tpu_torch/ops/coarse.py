@@ -58,24 +58,26 @@ from .expand import expand_rows
 from .gatherm import backdrop_from_csum, gather_endpoints
 from .hitfuse import hit_records_fused, split_fused
 from .keyed import record_keyed_sums
+from .pairing import pair_entries, resolve_pair_mode
 from .sort import stable_sort_multi
 
 _INF = float("inf")
 F32, I32 = torch.float32, torch.int32
 
 #: The stages of the pass, in order, under the JAX pass's probe names
-#: (``piet_tpu/profiling.py::STAGE_ORDER`` less "pairing", which is not
-#: ported).  A stage's probe holds its output tensors.  Where one kernel
+#: (``piet_tpu/profiling.py::STAGE_ORDER``).  A stage's probe holds its
+#: output tensors.  Where one kernel
 #: does several JAX stages, the probe stands after the kernel under the
 #: group's first name: kernel A is "cand_expand"; kernel B "hit_expand"
 #: (JAX's "hit_gather" and "hit_tests" too); the one-call keyed sums
 #: "cand_emit" (and "del_scatter").  "tile_reduce" runs to the end of the
 #: pass (the bail, and on the dense route the slot scatters).  The
 #: segment stages ("seg_expand" .. "seg_rects") run only where the
-#: segments are derived on the device; "runs" only on the entries route.
+#: segments are derived on the device; "pairing" only on a paired entries
+#: pass, "runs" only on an unpaired one.
 PROBE_STAGES = ("cand_expand", "seg_expand", "seg_points", "seg_derive",
                 "seg_rects", "hit_expand", "cand_emit", "deltas", "rows",
-                "sort", "sorted_gather", "runs", "tile_reduce")
+                "sort", "sorted_gather", "pairing", "runs", "tile_reduce")
 
 
 class _StopAfter(Exception):
@@ -427,11 +429,6 @@ def sort_key_bounds(n_tiles: int, n_items: int) -> tuple:
     return (n_tiles, 2 * n_items + 2)
 
 
-def _not_covered(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet: see ROADMAP.md Queue 1, {item!r}")
-
-
 def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
                      tile_w: int, tile_h: int, max_segments: int,
                      max_hits: int, max_candidates: int, row0: int = 0,
@@ -447,14 +444,18 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
     command lists of ``cmd_capacity`` slots (:class:`CoarseOutput`), as
     the JAX pass's dense output does.
 
+    ``pair``: entry pairing of the entries output (ops/pairing.py):
+    "off" (or False), "compact" (or True) or "hole"; anything else raises
+    ``ValueError``.  The dense output ignores it, as the JAX pass does.
+
     ``taps``: optional dict that receives each kernel's inputs (keys
     "cand_inputs" -- the scene and the rect keywords of kernel A's item
     rows; "candfuse" -- the rows and the expansion's keywords;
     "hitfuse", "sort" -- the keys tuple, the values and the key bounds;
     "keyed" -- the hit records, their live count and n_out; "gatherm" --
     a list of (site, arguments) of ``gatherm.SITES``, one a call;
-    "expand" on the device-derived segment stage) -- for tests and
-    chip_smoke.py.
+    "expand" on the device-derived segment stage; "pairing" -- the
+    compaction's bundle and keep mask) -- for tests and chip_smoke.py.
 
     ``with_probes=True`` adds ``diag["probes"]``: name -> the output
     tensors of each stage that ran (:data:`PROBE_STAGES`), in order.
@@ -489,8 +490,7 @@ def _coarse_pass(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
         raise ValueError(f"unknown coarse output {output!r}")
     if output == "dense" and cmd_capacity is None:
         raise ValueError("output='dense' needs cmd_capacity")
-    if pair not in (False, "off"):
-        _not_covered("entry pairing", "pairing")
+    pair_mode = resolve_pair_mode(pair)
     dev = scene.tags.device
     NI = scene.tags.shape[0]
     n_tiles = tiles_x * tiles_y
@@ -728,24 +728,17 @@ def _coarse_pass(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
                            n_tiles=n_tiles, max_hits=max_hits,
                            cmd_capacity=cmd_capacity, probe=probe)
 
-    # ---- run words: remaining length of each same-class streak ---------
-    sf = stream16.view(F32)
-    t0w = sf[:, W_S0_TAG]
-    t1w = sf[:, W_S1_TAG]
-    run_pf = live & (t0w == 0.0) & (t1w == float(CMD_FILL))
-    run_ln = live & (t0w == float(CMD_LINE)) & (t1w == 0.0)
-    clsf = W(run_pf, 1.0, W(run_ln, 2.0, 0.0))
-    tkey = clsf * float(n_tiles + 1) + torch.clamp(e_tile, max=n_tiles).to(
-        F32)
-    prev = torch.cat([torch.full((1,), -1.0, device=dev), tkey[:-1]])
-    eidxf = torch.arange(E, dtype=F32, device=dev)
-    bnd = W(tkey != prev, eidxf, float(E))
-    nxt = torch.flip(torch.cummin(torch.flip(bnd, [0]), 0).values, [0])
-    next_b = torch.cat([nxt[1:], torch.full((1,), float(E), device=dev)])
-    run_len = torch.clamp(next_b - eidxf, max=float(RUN_CAP))
-    w_run = W(run_pf, run_len, W(run_ln, -run_len, 0.0))
-    stream16 = torch.cat([stream16[:, :W_RUN], _bits(w_run)[:, None]], dim=1)
-    probe("runs", stream16)
+    if pair_mode != "off":
+        p = pair_entries(stream16, sorted_keys, live, e_tile, e_ncmds,
+                         e_is_opaque, e_is_clear, n_tiles, mode=pair_mode,
+                         taps=taps)
+        stream16, live, e_tile = p.rows, p.live, p.e_tile
+        e_ncmds, e_is_opaque, e_is_clear = (p.e_ncmds, p.e_is_opaque,
+                                            p.e_is_clear)
+        probe("pairing", stream16)
+    else:
+        stream16 = _run_words(stream16, live, e_tile, n_tiles)
+        probe("runs", stream16)
 
     # ---- per-tile ranges, command totals and the bail ------------------
     cpos_excl, cpos_incl = _exclusive_cumsum(e_ncmds)
@@ -790,6 +783,32 @@ def _coarse_pass(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
                         solid=solid.to(I32), diag=diag)
     probe("tile_reduce", out.first, out.n_entries, out.solid)
     return out
+
+
+def _run_words(stream16: torch.Tensor, live: torch.Tensor,
+               e_tile: torch.Tensor, n_tiles: int) -> torch.Tensor:
+    """``stream16`` with its ``W_RUN`` words: the remaining length of each
+    entry's streak of same-class (plain fill or line) entries in its tile,
+    + for fills, - for lines, 0 elsewhere."""
+    dev = stream16.device
+    E = stream16.shape[0]
+    W = torch.where
+    sf = stream16.view(F32)
+    t0w = sf[:, W_S0_TAG]
+    t1w = sf[:, W_S1_TAG]
+    run_pf = live & (t0w == 0.0) & (t1w == float(CMD_FILL))
+    run_ln = live & (t0w == float(CMD_LINE)) & (t1w == 0.0)
+    clsf = W(run_pf, 1.0, W(run_ln, 2.0, 0.0))
+    tkey = clsf * float(n_tiles + 1) + torch.clamp(e_tile, max=n_tiles).to(
+        F32)
+    prev = torch.cat([torch.full((1,), -1.0, device=dev), tkey[:-1]])
+    eidxf = torch.arange(E, dtype=F32, device=dev)
+    bnd = W(tkey != prev, eidxf, float(E))
+    nxt = torch.flip(torch.cummin(torch.flip(bnd, [0]), 0).values, [0])
+    next_b = torch.cat([nxt[1:], torch.full((1,), float(E), device=dev)])
+    run_len = torch.clamp(next_b - eidxf, max=float(RUN_CAP))
+    w_run = W(run_pf, run_len, W(run_ln, -run_len, 0.0))
+    return torch.cat([stream16[:, :W_RUN], _bits(w_run)[:, None]], dim=1)
 
 
 def _dense_ptcl(rows, sorted_idx, live, e_tile, e_ncmds, e_is_opaque,

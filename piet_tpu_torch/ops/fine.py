@@ -9,7 +9,11 @@ stream; entries apply in stream order to every pixel of the tile, then the
 polynomial sRGB encode packs RGBA8.  An empty tile writes its present
 colour (the bail solid's bytes, or white).  The plain version does not
 read ``W_RUN``: run dispatch does not change pixels.  The CUDA kernel is
-``csrc/fine.cu``.
+``csrc/fine.cu``.  ``paired=True`` reads a paired stream (ops/pairing.py):
+an F2 entry's slot-0 fill applies before its slot-1 fill, an L2 entry's
+slot-1 line reads its inv_denom from slot-1 word 4, and an all-zero hole
+matches no class; the kernel's paired instantiation interprets it entry
+by entry, without the run dispatch.
 :func:`fine_rasterize_entries_plain` is its plain PyTorch version: a
 tile-vectorized interpreter whose step k applies entry ``first + k`` of
 every tile with ``n > k`` -- all classes present in the step are computed
@@ -43,8 +47,9 @@ from .cmd_math import (DF2_INIT, DF_INIT, clip_alpha, edge_delta, fill_delta,
                        make_grad_commands, pack_rgba8)
 
 F32, I32 = torch.float32, torch.int32
-#: Pseudo-tag marking a step that carries a slot-1 fill.
+#: Pseudo-tags marking a step that carries a slot-1 fill, a slot-1 line.
 _S1_FILL = -1
+_S1_LINE = -2
 
 
 def _untile(tiles: torch.Tensor, tiles_x: int) -> torch.Tensor:
@@ -68,8 +73,8 @@ def _tile_grid(T: int, tiles_x: int, row0, tile_h: int, tile_w: int,
 
 
 def fine_rasterize_entries_plain(first, n_entries, solid, stream, row0=0, *,
-                                 tile_h: int, tile_w: int,
-                                 tiles_x: int) -> torch.Tensor:
+                                 tile_h: int, tile_w: int, tiles_x: int,
+                                 paired: bool = False) -> torch.Tensor:
     """Plain PyTorch version of kernel D; see
     :func:`fine_rasterize_entries`."""
     dev = stream.device
@@ -99,11 +104,15 @@ def fine_rasterize_entries_plain(first, n_entries, solid, stream, row0=0, *,
         ent = stream[first_s[:A] + k]                       # (A, 16)
         tag0 = ent[:, W_S0_TAG].to(I32)
         s1_fill = ent[:, W_S1_TAG] == float(CMD_FILL)
+        s1_line = paired & (ent[:, W_S1_TAG] == float(CMD_LINE))
         # One host read per step: which classes occur among its entries.
-        codes = torch.unique(tag0 * 2 + s1_fill.to(I32)).tolist()
-        present = {c >> 1 for c in codes}
+        codes = torch.unique(tag0 * 4 + s1_fill.to(I32)
+                             + 2 * s1_line.to(I32)).tolist()
+        present = {c >> 2 for c in codes}
         if any(c & 1 for c in codes):
             present.add(_S1_FILL)
+        if any(c & 2 for c in codes):
+            present.add(_S1_LINE)
         Xa, Ya = X[:A], Y[:A]
         ar = torch.arange(A, device=dev)
 
@@ -122,9 +131,23 @@ def fine_rasterize_entries_plain(first, n_entries, solid, stream, row0=0, *,
         if CMD_LINE in present:
             df2[:A] = torch.where(sel(CMD_LINE), torch.minimum(
                 df2[:A], line_field_sq(arg0, Xa, Ya)), df2[:A])
+        if _S1_LINE in present:
+            # An L2 entry's second line: inv_denom in slot-1 word 4.
+            def arg1_line(j):
+                return arg1(4 if j == 5 else j)
+
+            df2[:A] = torch.where(
+                (s1_line & (tag0 == CMD_LINE)).view(A, 1, 1),
+                torch.minimum(df2[:A], line_field_sq(arg1_line, Xa, Ya)),
+                df2[:A])
         if CMD_FILL_EDGE in present:
             area[:A] = torch.where(sel(CMD_FILL_EDGE),
                                    area[:A] + edge_delta(arg0, Ya), area[:A])
+        if paired and CMD_FILL in present:
+            # An F2 entry's first fill, before its slot-1 fill.
+            m, d = fill_delta(arg0, Xa, Ya)
+            area[:A] = torch.where((s1_fill & (tag0 == CMD_FILL)).view(
+                A, 1, 1) & m, area[:A] + d, area[:A])
         if _S1_FILL in present:
             m, d = fill_delta(arg1, Xa, Ya)
             area[:A] = torch.where(s1_fill.view(A, 1, 1) & m,
@@ -194,8 +217,8 @@ def fine_rasterize_entries_plain(first, n_entries, solid, stream, row0=0, *,
 
 
 def fine_rasterize_entries(first, n_entries, solid, stream, row0=0, *,
-                           tile_h: int, tile_w: int,
-                           tiles_x: int) -> torch.Tensor:
+                           tile_h: int, tile_w: int, tiles_x: int,
+                           paired: bool = False) -> torch.Tensor:
     """Rasterize all tiles of a slab from an entry stream.
 
     Args:
@@ -203,6 +226,8 @@ def fine_rasterize_entries(first, n_entries, solid, stream, row0=0, *,
       solid: (T,) int32 bits of the present-format bail colour (0 = none).
       stream: (E, 16) f32 entry-major records (ops/coarse.py).
       row0: first tile row of the slab.
+      paired: the stream is paired (ops/pairing.py): the kernel's paired
+        instantiation, entry by entry; else run dispatch on ``W_RUN``.
 
     Returns (T // tiles_x * tile_h, tiles_x * tile_w) int32 holding packed
     RGBA8 (R in the low byte).
@@ -210,7 +235,7 @@ def fine_rasterize_entries(first, n_entries, solid, stream, row0=0, *,
     if not kernels.on_cuda(first, n_entries, solid, stream):
         return fine_rasterize_entries_plain(
             first, n_entries, solid, stream, row0, tile_h=tile_h,
-            tile_w=tile_w, tiles_x=tiles_x)
+            tile_w=tile_w, tiles_x=tiles_x, paired=paired)
     T = first.shape[0]
     if stream.ndim != 2 or stream.shape[1] != ENTRY_WORDS:
         raise ValueError(f"stream shape {tuple(stream.shape)}")
@@ -228,10 +253,10 @@ def fine_rasterize_entries(first, n_entries, solid, stream, row0=0, *,
                       device=stream.device)
     # Scratch for the kernel's dense-first tile order.
     order = torch.empty((T,), dtype=I32, device=stream.device)
-    kernels.launch("fine", "piet_fine_entries", first.data_ptr(),
-                   n_entries.data_ptr(), solid.data_ptr(), stream.data_ptr(),
-                   order.data_ptr(), out.data_ptr(), T, tiles_x, tile_w,
-                   tile_h, int(row0))
+    kernels.launch("fine_paired" if paired else "fine", "piet_fine_entries",
+                   first.data_ptr(), n_entries.data_ptr(), solid.data_ptr(),
+                   stream.data_ptr(), order.data_ptr(), out.data_ptr(), T,
+                   tiles_x, tile_w, tile_h, int(row0), int(paired))
     return out
 
 

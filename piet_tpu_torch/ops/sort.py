@@ -1,10 +1,11 @@
 """Stable sort of the coarse pass's keys (kernel C).
 
-Port of ``piet_tpu/ops/sort.py::stable_sort_multi``.  The keys are the
-ones the coarse pass makes: non-negative integers held in f32 below a
-bound (``bounds``, at most 2^24, where f32 stops being exact), and +inf
-for dead records.  The plain version is ``torch.sort(stable=True)``, one
-key at a time from the last; the CUDA kernel (``csrc/sort.cu``) is a
+Port of ``piet_tpu/ops/sort.py::stable_sort_multi`` and its one-key
+wrapper ``stable_sort_pairs``.  The keys are the ones the coarse pass
+makes: non-negative integers held in f32 below a bound (``bounds``, at
+most 2^24, where f32 stops being exact), and +inf for dead records.  The
+plain version is ``torch.sort(stable=True)``, one key at a time from the
+last; the CUDA kernel (``csrc/sort.cu``) is a
 stable LSD radix sort on the keys' integer values, with +inf mapped to the
 bound, so the result is the same for any ``val``.
 
@@ -157,3 +158,12 @@ def stable_sort_multi(keys, val: torch.Tensor,
         len(plan.passes), sched, plan.cluster, plan.chunk,
         scratch.data_ptr() if scratch is not None else None)
     return out_keys, out_val
+
+
+def stable_sort_pairs(key: torch.Tensor, val: torch.Tensor,
+                      bound: Optional[int] = None):
+    """Single-key wrapper around :func:`stable_sort_multi`: (sorted key,
+    sorted val).  ``bound``: the key bound of the kernel (2^24 if None)."""
+    (ks,), vs = stable_sort_multi(
+        (key,), val, bounds=None if bound is None else (bound,))
+    return ks, vs

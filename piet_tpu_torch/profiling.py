@@ -22,12 +22,13 @@ call replayed on that pass's outputs, ``end_to_end`` the frame step of
 ``make_render_fn`` (its output copy included).  On the CPU (the tests)
 the same steps run eagerly, timed by the host clock.
 
-Stage names are the JAX package's (:data:`STAGE_ORDER`).  "pairing" is
-left out: it is not ported.  A JAX stage that the port does inside an
-earlier stage's kernel reads 0.0 and is named in :data:`FOLDED`; so do
-stages that the pass does not run (the segment stages of a host-staged
-scene, "runs" on the dense route).  torch.profiler is not used: it drops
-kernel records now and then.
+Stage names are the JAX package's (:data:`STAGE_ORDER`).  A JAX stage
+that the port does inside an earlier stage's kernel reads 0.0 and is
+named in :data:`FOLDED`; so do stages that the pass does not run (the
+segment stages of a host-staged scene, "pairing" unless the entries
+route pairs -- ``PIET_PAIR``, read as the renderer reads it -- and
+"runs" on the dense route or a paired pass).  torch.profiler is not
+used: it drops kernel records now and then.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ from .ops.fine_xla import fine_rasterize_xla
 from .renderer.graph import CapturedStep
 from .renderer.renderer import (_solid_to_present_u32, check_device,
                                 make_render_fn, prepare_scene,
-                                resolve_fine_impl)
+                                resolve_fine_impl, step_pair_mode)
 
 #: The JAX profiler's stage order (``piet_tpu/profiling.py``).
 STAGE_ORDER = (
@@ -76,7 +77,7 @@ FOLDED = {"hit_gather": "hit_expand", "hit_tests": "hit_expand",
           "del_scatter": "cand_emit"}
 
 #: The stages a profile reports.
-PROFILED = tuple(n for n in STAGE_ORDER if n != "pairing")
+PROFILED = STAGE_ORDER
 
 #: Interleaved rounds; each step's time is its median over them.
 ROUNDS = 5
@@ -156,13 +157,14 @@ def profile_render(scene, config: RenderConfig, *, fine_impl: str = "auto",
     ``end_to_end``."""
     dev = check_device(device)
     impl = resolve_fine_impl(fine_impl)
+    pair = step_pair_mode(impl)
     staged = prepare_scene(scene, config, dev)
     kw = dict(tiles_x=config.tiles_x, tiles_y=config.tiles_y,
               tile_w=config.tile_width, tile_h=config.tile_height,
               max_segments=config.max_segments, max_hits=config.max_hits,
               max_candidates=config.max_candidates,
               output="entries" if impl == "entries" else "dense",
-              cmd_capacity=config.cmd_capacity)
+              cmd_capacity=config.cmd_capacity, pair=pair)
     coarse = coarse_rasterize(staged, with_probes=True, **kw)
     ran = list(coarse.diag["probes"])
 
@@ -175,8 +177,8 @@ def profile_render(scene, config: RenderConfig, *, fine_impl: str = "auto",
                    _solid_to_present_u32(coarse.solid), coarse.stream)
 
         def fine_fn(x):
-            return _first(fine_rasterize_entries(*x, 0, tiles_x=config.tiles_x,
-                                                 **fk))
+            return _first(fine_rasterize_entries(
+                *x, 0, tiles_x=config.tiles_x, paired=pair != "off", **fk))
     else:
         fine_in = (coarse.counts.reshape(config.tiles_y, config.tiles_x),
                    coarse.tags, coarse.args)

@@ -121,12 +121,17 @@ class CapturedStep:
             out = self.fn(e.tree)
             e.built = True
             return out
-        if e.graph is None:
-            self._capture(e)
-            e.built = True
-        e.graph.replay()
+        # The step's device is the current one while it is captured and
+        # replayed: the graph and the kernels' stream (kernels.stream) are
+        # the current device's.
+        with torch.cuda.device(self.device):
+            if e.graph is None:
+                self._capture(e)
+                e.built = True
+            e.graph.replay()
+            out = e.out.clone()
         kernels.add_launches(e.launches)
-        return e.out.clone()
+        return out
 
     def _capture(self, e: _Entry) -> None:
         dev = self.device
@@ -137,8 +142,10 @@ class CapturedStep:
                 self.fn(e.tree)
             torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
+        # A capture stream of the step's card: torch.cuda.graph's default
+        # one is made once, on the card current at the first capture.
         with kernels.launches_apart() as launches:
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph, stream=torch.cuda.Stream(dev)):
                 out = self.fn(e.tree)
         e.graph, e.out, e.launches = graph, out, launches
 
@@ -155,14 +162,14 @@ def device_ops(fn: Callable[[], object], device="cuda") -> List[str]:
     gives them.  Exact, where a profiler trace can drop
     records; the launches are kept out of ``kernels.LAUNCHES``."""
     dev = torch.device(device)
-    with kernels.launches_apart():
+    with kernels.launches_apart(), torch.cuda.device(dev):
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             fn()
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, stream=torch.cuda.Stream(dev)):
             fn()
     cuda = ctypes.CDLL("libcuda.so.1")
     handle = ctypes.c_void_p(graph.raw_cuda_graph())

@@ -5,13 +5,19 @@ padded tensors on a device (``prepare_scene``, with the numpy host segment
 stage ``build_seg_pre`` unless a device animation derives segments per
 frame), then a frame takes one of two routes (``fine_impl``):
 
-* ``"entries"`` (the default; the JAX package's ``"pallas"`` route):
-  ``coarse_rasterize`` -> ``fine_rasterize_entries``, the present
-  composite fused into the fine pass's empty tiles;
 * ``"dense"`` (the JAX package's portable ``"xla"`` route):
   ``coarse_rasterize(output="dense")`` -> ``fine_rasterize_xla`` on the
   (T, CAP) PTCL, then the present composite: bailed tiles take their
-  solid colour's bytes.
+  solid colour's bytes;
+* ``"entries"`` (the JAX package's ``"pallas"`` route):
+  ``coarse_rasterize`` -> ``fine_rasterize_entries``, the present
+  composite fused into the fine pass's empty tiles.  Its stream may be
+  paired (ops/pairing.py): the mode is read from ``PIET_PAIR`` when a
+  step is built, "off" unless it is set, as in the JAX package.
+
+``"auto"``, the default of every entry point, is ``"dense"``: the JAX
+package's rule off a TPU, and the faster graphed route on the H100 at six
+of the seven cells measured (PERF.md).
 
 A frame is one compiled step, as the JAX package's ``jax.jit`` makes it:
 :func:`make_render_fn` returns ``render(scene) -> (img, stats)``, which on
@@ -35,6 +41,7 @@ Usage:
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -46,10 +53,11 @@ from ..scene.color import decode_color_linear
 from ..ops.coarse import DeviceScene, SegPre, coarse_rasterize
 from ..ops.fine import fine_rasterize_entries
 from ..ops.fine_xla import fine_rasterize_xla
+from ..ops.pairing import pair_mode_from_env, resolve_pair_mode
 from .graph import CapturedStep
 
 #: The two frame routes; see the module doc.  ``"auto"`` names the
-#: default, ``"entries"``.
+#: default, ``"dense"``.
 FINE_IMPLS = ("entries", "dense")
 
 
@@ -59,8 +67,9 @@ class SceneCapacityError(ValueError):
 
 def resolve_fine_impl(fine_impl: str) -> str:
     """A route name, with ``"auto"`` (the JAX package's default) read as
-    the port's default route; raises for an unknown name."""
-    impl = "entries" if fine_impl == "auto" else fine_impl
+    the JAX package reads it off a TPU: ``"dense"``; raises for an unknown
+    name."""
+    impl = "dense" if fine_impl == "auto" else fine_impl
     if impl not in FINE_IMPLS:
         raise ValueError(f"fine_impl must be one of {FINE_IMPLS} or 'auto', "
                          f"got {fine_impl!r}")
@@ -264,28 +273,37 @@ def _solid_to_present_u32(solid: torch.Tensor) -> torch.Tensor:
     return r | (g << 8) | (b << 16) | (a << 24)
 
 
+def step_pair_mode(fine_impl: str) -> str:
+    """The pairing mode a step of route ``fine_impl`` is built with:
+    ``PIET_PAIR`` on the entries route (ops/pairing.py), "off" on the
+    dense route, which takes no pairing."""
+    if resolve_fine_impl(fine_impl) == "dense":
+        return "off"
+    return resolve_pair_mode(pair_mode_from_env())
+
+
 def render_slab(scene: DeviceScene, config: RenderConfig, *, tiles_y: int,
-                row0: int = 0, fine_impl: str = "entries"):
+                row0: int = 0, fine_impl: str = "auto", pair="off"):
     """Coarse + fine + present for ``tiles_y`` tile rows from ``row0`` by
-    the ``fine_impl`` route.  Returns (slab image as int32 RGBA8 bits,
-    stats of 0-d tensors)."""
+    the ``fine_impl`` route; ``pair`` pairs the entries route's stream
+    (ops/pairing.py).  Returns (slab image as int32 RGBA8 bits, stats of
+    0-d tensors)."""
+    fine_impl = resolve_fine_impl(fine_impl)
     tiles_x = config.tiles_x
     th, tw = config.tile_height, config.tile_width
     kw = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tw, tile_h=th,
               max_segments=config.max_segments, max_hits=config.max_hits,
               max_candidates=config.max_candidates, row0=row0)
     if fine_impl == "entries":
-        coarse = coarse_rasterize(scene, **kw)
+        pair = resolve_pair_mode(pair)
+        coarse = coarse_rasterize(scene, pair=pair, **kw)
         img = fine_rasterize_entries(
             coarse.first, coarse.n_entries,
             _solid_to_present_u32(coarse.solid), coarse.stream, row0,
-            tile_h=th, tile_w=tw, tiles_x=tiles_x)
+            tile_h=th, tile_w=tw, tiles_x=tiles_x, paired=pair != "off")
         stats = {"max_tile_cmds": coarse.counts.max(),
                  "bail_tiles": (coarse.solid != 0).sum(), **coarse.diag}
         return img, stats
-    if fine_impl != "dense":
-        raise ValueError(f"fine_impl must be one of {FINE_IMPLS}, got "
-                         f"{fine_impl!r}")
     coarse = coarse_rasterize(scene, output="dense",
                               cmd_capacity=config.cmd_capacity, **kw)
     fine = fine_rasterize_xla(
@@ -304,12 +322,12 @@ def render_slab(scene: DeviceScene, config: RenderConfig, *, tiles_y: int,
 
 
 def _frame_flat(scene: DeviceScene, config: RenderConfig, fine_impl: str,
-                keys: List[str]) -> torch.Tensor:
+                keys: List[str], pair="off") -> torch.Tensor:
     """One whole-viewport frame as one int32 vector: the (H, W) image's
     words, then each stat; the stat names go into ``keys``.  One output
     tensor makes a frame one clone and one host read."""
     img, stats = render_slab(scene, config, tiles_y=config.tiles_y, row0=0,
-                             fine_impl=fine_impl)
+                             fine_impl=fine_impl, pair=pair)
     keys[:] = list(stats)
     return torch.cat([img[:config.height, :config.width].reshape(-1),
                       torch.stack([v.to(torch.int32)
@@ -368,45 +386,49 @@ _T_LIKE = torch.empty((), dtype=torch.float32)
 
 
 def make_render_fn(config: RenderConfig, device="cuda",
-                   fine_impl: str = "entries") -> RenderFn:
+                   fine_impl: str = "auto") -> RenderFn:
     """The frame step: a DeviceScene (``prepare_scene``, with or without
     ``seg_pre``) -> ((H, W) image, stats).  The counterpart of the JAX
     package's jitted ``make_render_fn``: on a CUDA device one CUDA graph
     per input signature, replayed; on the CPU the eager ``render_slab``.
-    ``fine_impl``: "entries" (the default), "dense", or "auto" (=
-    "entries")."""
+    ``fine_impl``: "auto" (the default, = "dense"), "dense" or
+    "entries"; the entries route's pairing mode is read from ``PIET_PAIR``
+    here, when the step is built (:func:`step_pair_mode`)."""
     impl = resolve_fine_impl(fine_impl)
+    mode = step_pair_mode(impl)
     return RenderFn(config, check_device(device),
                     lambda scene, keys: _frame_flat(scene, config, impl,
-                                                    keys))
+                                                    keys, mode))
 
 
 def make_render_sequence_fn(config: RenderConfig, device="cuda",
-                            fine_impl: str = "entries") -> RenderFn:
+                            fine_impl: str = "auto") -> RenderFn:
     """The sequence step: a stacked DeviceScene (``stack_scenes``, frame
     axis 0 on every tensor) -> ((N, H, W) images, stats of shape (N,)).
     On a CUDA device all N frames are one CUDA graph, captured once per N
     (the counterpart of the JAX package's one ``lax.map`` dispatch): a
     sequence is one replay and one clone, whatever N."""
     impl = resolve_fine_impl(fine_impl)
+    mode = step_pair_mode(impl)
 
     def frames(stacked: DeviceScene, keys):
         return torch.stack([_frame_flat(_frame_of(stacked, i), config, impl,
-                                        keys)
+                                        keys, mode)
                             for i in range(stacked.tags.shape[0])])
 
     return RenderFn(config, check_device(device), frames)
 
 
 def make_time_render_fn(config: RenderConfig, scene_at: Callable, device,
-                        fine_impl: str = "entries") -> TimeRenderFn:
+                        fine_impl: str = "auto") -> TimeRenderFn:
     """The frame step of a device animation: ``scene_at(t)`` (a 0-d f32
     tensor on ``device`` -> the frame's DeviceScene, torch ops only) and
     the frame, as one step -- one CUDA graph on a CUDA device."""
     impl = resolve_fine_impl(fine_impl)
+    mode = step_pair_mode(impl)
     return TimeRenderFn(config, check_device(device),
                         lambda t, keys: _frame_flat(scene_at(t), config,
-                                                    impl, keys))
+                                                    impl, keys, mode))
 
 
 class Renderer:
@@ -415,9 +437,10 @@ class Renderer:
 
     ``device`` is "cuda" (the default), "cuda:n" or "cpu": a CUDA renderer
     without a CUDA device raises instead of running on the CPU.
-    ``fine_impl`` is "entries" (the default; the JAX package's "pallas"
-    route), "dense" (its "xla" route) or "auto" ("entries"); see the
-    module doc.
+    ``fine_impl`` is "auto" (the default, = "dense"), "dense" (the JAX
+    package's "xla" route) or "entries" (its "pallas" route); see the
+    module doc.  The entries route's pairing mode is read from
+    ``PIET_PAIR`` here, and every step of the renderer is built with it.
     """
 
     #: DeviceScene fields ``render_updated`` may restage, keyed by the
@@ -426,9 +449,10 @@ class Renderer:
                        "clips", "flags")
 
     def __init__(self, config: RenderConfig, device="cuda",
-                 fine_impl: str = "entries"):
+                 fine_impl: str = "auto"):
         self.device = check_device(device)
         self.fine_impl = resolve_fine_impl(fine_impl)
+        self._pair = step_pair_mode(self.fine_impl)
         self.config = config
         self.last_stats: Optional[Dict] = None
         self._render = make_render_fn(config, self.device, self.fine_impl)
@@ -438,7 +462,7 @@ class Renderer:
 
     @classmethod
     def for_scene(cls, scene, width: int, height: int, *, device="cuda",
-                  fine_impl: str = "entries", bucket: bool = True,
+                  fine_impl: str = "auto", bucket: bool = True,
                   **config_kw) -> "Renderer":
         """Renderer with record capacities fitted to ``scene``
         (renderer/capacity.py; bucket=True leaves headroom)."""
@@ -457,8 +481,12 @@ class Renderer:
         host synchronization.  A scene without ``seg_pre`` (a device
         animation frame) has its segments derived on the device."""
         cfg = self.config
-        img, stats = render_slab(dev, cfg, tiles_y=cfg.tiles_y, row0=0,
-                                 fine_impl=self.fine_impl)
+        # The renderer's card is current: the kernels launch on its stream.
+        with (torch.cuda.device(self.device) if self.device.type == "cuda"
+              else contextlib.nullcontext()):
+            img, stats = render_slab(dev, cfg, tiles_y=cfg.tiles_y, row0=0,
+                                     fine_impl=self.fine_impl,
+                                     pair=self._pair)
         return img[:cfg.height, :cfg.width], stats
 
     def _finish(self, fn: RenderFn, x) -> torch.Tensor:
@@ -509,10 +537,10 @@ class Renderer:
         jits ``unpack_scene`` with the render).  No host sync: a
         multi-frame caller checks capacities itself."""
         if self._render_packed is None:
-            cfg, impl = self.config, self.fine_impl
+            cfg, impl, mode = self.config, self.fine_impl, self._pair
             self._render_packed = RenderFn(
                 cfg, self.device, lambda buf, keys: _frame_flat(
-                    unpack_scene(buf, cfg), cfg, impl, keys))
+                    unpack_scene(buf, cfg), cfg, impl, keys, mode))
         return self._render_packed
 
     def render_packed_u32(self, scene) -> torch.Tensor:

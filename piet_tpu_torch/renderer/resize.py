@@ -44,7 +44,7 @@ class ResizableRenderer:
     """
 
     def __init__(self, config: RenderConfig, device="cuda",
-                 fine_impl: str = "entries"):
+                 fine_impl: str = "auto"):
         # Built at the full padded grid, so the step's crop is a no-op;
         # the per-viewport crop is a numpy slice on the host.
         self.max_width = config.padded_width
@@ -56,7 +56,7 @@ class ResizableRenderer:
 
     @classmethod
     def for_scene(cls, scene, max_width: int, max_height: int, *,
-                  device="cuda", fine_impl: str = "entries",
+                  device="cuda", fine_impl: str = "auto",
                   **config_kw) -> "ResizableRenderer":
         """Capacities fitted to ``scene`` at the maximum grid (bucketed,
         so moderate scene edits need no new graph either)."""

@@ -241,7 +241,7 @@ def host_transform_scene(scene, m):
 
 
 def make_affine_render_fn(config, scene, mats_fn: Callable, device="cuda",
-                          fine_impl: str = "entries"):
+                          fine_impl: str = "auto"):
     """``t -> (image, stats)`` rendering ``scene`` under ``mats_fn(t)``
     ((NI, 6) or (6,) affines from a 0-d f32 tensor on the device, torch
     ops only): transform, coarse (segments derived on the device), fine

@@ -144,7 +144,7 @@ def animate_device_scene(base, p: AnimatedParams, t):
 
 def make_animated_render_fn(config, *, size: int = 1024, n: int = 200,
                             seed: int = 5, device="cuda",
-                            fine_impl: str = "entries"):
+                            fine_impl: str = "auto"):
     """``t -> (image, stats)`` with the whole frame -- geometry, coarse
     (segments derived on the device), fine, present -- in ONE step on
     ``device``: one CUDA graph replay a frame on a CUDA device, as the JAX

@@ -150,7 +150,7 @@ def test_frame_bitwise_equals_oracle(name, t):
     cfg = _cfg(scene)
     render_t = affine.make_affine_render_fn(
         cfg, scene, lambda tt: affine.rotation_about(128.0, 128.0, tt, 0.8),
-        device="cpu")
+        device="cpu", fine_impl="entries")
     img, stats = render_t(t)
     assert int(stats["hit_overflow"]) == int(stats["cand_overflow"]) == 0
     got = img.numpy().view(np.uint8).reshape(SIZE, SIZE, 4)
@@ -162,7 +162,8 @@ def test_render_fn_deterministic_and_moving():
     scene = _demo_scene()
     render_t = affine.make_affine_render_fn(
         _cfg(scene), scene,
-        lambda t: affine.rotation_about(128.0, 128.0, t, 1.0), device="cpu")
+        lambda t: affine.rotation_about(128.0, 128.0, t, 1.0), device="cpu",
+        fine_impl="entries")
     a1, _ = render_t(0.25)
     a2, _ = render_t(0.25)
     b, _ = render_t(0.5)

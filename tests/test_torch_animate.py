@@ -125,7 +125,7 @@ def test_frame_bitwise_equals_oracle(t):
     tmpl = animate.template_scene(size=SIZE, n=N, seed=SEED)
     cfg = _cfg(tmpl)
     render_t, got_tmpl = animate.make_animated_render_fn(
-        cfg, size=SIZE, n=N, seed=SEED, device="cpu")
+        cfg, size=SIZE, n=N, seed=SEED, device="cpu", fine_impl="entries")
     assert got_tmpl.n_items == tmpl.n_items
     img, stats = render_t(t)
     assert int(stats["seg_overflow"]) == int(stats["hit_overflow"]) == 0
@@ -137,7 +137,8 @@ def test_frame_bitwise_equals_oracle(t):
 def test_frames_deterministic_and_moving():
     tmpl = animate.template_scene(size=SIZE, n=N, seed=SEED)
     render_t, _ = animate.make_animated_render_fn(
-        _cfg(tmpl), size=SIZE, n=N, seed=SEED, device="cpu")
+        _cfg(tmpl), size=SIZE, n=N, seed=SEED, device="cpu",
+        fine_impl="entries")
     a1, _ = render_t(2.2)
     a2, _ = render_t(torch.tensor(2.2))
     b, _ = render_t(2.3)

@@ -218,13 +218,18 @@ def test_stream_layout_round_trip():
     assert torch.equal(stream_from_jax_layout(blocks), x)
 
 
-@pytest.mark.parametrize("what", ["pairing"])
-def test_uncovered_paths_raise(what):
-    """Entry pairing is not ported.  (Grids whose packed sort key passes
-    2^24 take the unpacked two-key sort: tests/test_torch_unpacked.py.)"""
+@pytest.mark.parametrize("pair", ["on", 2, "xla"])
+def test_unknown_pair_mode_raises(pair):
+    """Pairing takes "off", "compact" and "hole" (True, False); anything
+    else raises ValueError, as the JAX pass does (tests of the modes
+    themselves: tests/test_torch_pairing.py)."""
     scene = fixtures.get_scene("path_test")
     cfg = fit_capacities(scene, RenderConfig(width=256, height=256))
     dev = device_scene_from_numpy(
         jax.tree.map(np.asarray, prepare_scene(scene, cfg)), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        coarse_rasterize(dev, pair="compact", **_kw(cfg))
+    with pytest.raises(ValueError, match="unknown pair mode"):
+        coarse_rasterize(dev, pair=pair, **_kw(cfg))
+    with pytest.raises(ValueError, match="unknown pair mode"):
+        jax_coarse(prepare_scene(scene, cfg), cmd_capacity=cfg.cmd_capacity,
+                   max_deltas=cfg.max_deltas, output="entries",
+                   sort_impl="xla", hitfuse="off", pair=pair, **_kw(cfg))

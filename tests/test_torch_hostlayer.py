@@ -26,7 +26,9 @@ ROOT = Path(__file__).resolve().parent.parent
 COPIES = ["config", "geometry.bezier", "geometry.path", "geometry.shapes",
           "geometry.svg_path", "scene.scene", "scene.color", "scene.svg",
           "scene.fixtures", "scene.wire", "scene.svg_full", "api",
-          "layout.entry_stream", "raster.ptcl", "raster.cpu_tiler",
+          "layout.entry_stream", "layout.dsl", "layout.packing",
+          "layout.emit_cpp", "layout.emit_py", "layout.modules",
+          "raster.ptcl", "raster.cpu_tiler",
           "raster.cpu_fine", "renderer.capacity", "renderer.segstage",
           "utils.png"]
 

@@ -77,3 +77,15 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
     proc = _run([str(ROOT / "chip_smoke.py")], tmp_path)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_every_jax_module_has_a_counterpart():
+    """The two packages' module lists: every module of piet_tpu has one
+    at the same relative path in piet_tpu_torch, and the JAX driver
+    entry's dry run has entry.dryrun_multichip."""
+    def modules(pkg):
+        return {str(p.relative_to(ROOT / pkg)) for p in
+                (ROOT / pkg).rglob("*.py") if "__pycache__" not in p.parts}
+    assert modules("piet_tpu") - modules("piet_tpu_torch") == set()
+    src = (ROOT / "piet_tpu_torch" / "entry.py").read_text()
+    assert "def dryrun_multichip(" in src and "def entry(" in src

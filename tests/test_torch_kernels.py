@@ -137,10 +137,11 @@ def _c_entry_points(text: str) -> dict:
 
 def test_every_kernel_has_an_entry_point_and_a_counter():
     """Each .cu source defines C entry points, and one launch counter
-    counts them; every entry point's ctypes signature matches its C
-    parameters, the stream last."""
+    counts them (kernel D's paired instantiation has a second one); every
+    entry point's ctypes signature matches its C parameters, the stream
+    last."""
     names = {p.stem for p in kernels.CSRC.glob("*.cu")}
-    assert names == set(kernels.LAUNCHES)
+    assert names | {"fine_paired"} == set(kernels.LAUNCHES)
     found = {}
     for src in kernels.CSRC.glob("*.cu"):
         entries = _c_entry_points(src.read_text())
@@ -560,11 +561,12 @@ def test_cuda_animated_frame_equals_oracle(t):
                                             tile_height=16, tile_width=128),
                          bucket=True)
     render_t, _ = animate.make_animated_render_fn(cfg, size=256, n=24,
-                                                  seed=5)
+                                                  seed=5, fine_impl="entries")
     kernels.reset_launches()
     img, _ = render_t(t)
     launches = dict(kernels.LAUNCHES)
     assert launches.pop("fine_dense") == 0     # the entries route
+    assert launches.pop("fine_paired") == 0    # an unpaired stream
     assert all(v > 0 for v in launches.values()), kernels.LAUNCHES
     got = img.cpu().numpy().view(np.uint8).reshape(256, 256, 4)
     frame = fetch_scene(render_t.scene_at(t), tmpl.n_items, tmpl.n_points)
@@ -582,7 +584,8 @@ def test_cuda_affine_frame_equals_oracle():
     cfg = dataclasses.replace(cfg, max_hits=8 * cfg.max_hits,
                               max_candidates=8 * cfg.max_candidates)
     render_t = affine.make_affine_render_fn(
-        cfg, scene, lambda t: affine.rotation_about(128.0, 128.0, t, 0.9))
+        cfg, scene, lambda t: affine.rotation_about(128.0, 128.0, t, 0.9),
+        fine_impl="entries")
     img, _ = render_t(0.5)
     got = img.cpu().numpy().view(np.uint8).reshape(256, 256, 4)
     frame = fetch_scene(render_t.scene_at(0.5), scene.n_items,
@@ -598,14 +601,15 @@ def test_cuda_slab_bitwise_equals_oracle_rows(row0):
         pytest.skip("needs a CUDA device")
     scene = fixtures.get_scene("clip_star")
     r = Renderer.for_scene(scene, 256, 256, device="cuda", tile_height=32,
-                           tile_width=128)
+                           tile_width=128, fine_impl="entries")
     cfg, rows = r.config, 3
     slab = dataclasses.replace(cfg, height=rows * cfg.tile_height)
     sp = build_seg_pre(scene, slab, row0=row0)
     dev = prepare_scene(scene, cfg, "cuda")._replace(seg_pre=coarse.SegPre(*(
         torch.from_numpy(np.ascontiguousarray(getattr(sp, f)).view(np.int32))
         .cuda() for f in coarse.SegPre._fields)))
-    img, _ = render_slab(dev, cfg, tiles_y=rows, row0=row0)
+    img, _ = render_slab(dev, cfg, tiles_y=rows, row0=row0,
+                         fine_impl="entries")
     got = img.cpu().numpy().view(np.uint8).reshape(rows * cfg.tile_height,
                                                    -1, 4)
     y0 = row0 * cfg.tile_height
@@ -637,7 +641,8 @@ def test_cuda_render_bitwise_equals_oracle(name, make, size, th):
         pytest.skip("needs a CUDA device")
     scene = make()
     r = Renderer.for_scene(scene, size, size, device="cuda",
-                           tile_height=th, tile_width=128)
+                           tile_height=th, tile_width=128,
+                           fine_impl="entries")
     kernels.reset_launches()
     got = r.render(scene)
     # A static scene stages its segments on the host: no expansion; the
@@ -645,6 +650,7 @@ def test_cuda_render_bitwise_equals_oracle(name, make, size, th):
     launches = dict(kernels.LAUNCHES)
     assert launches.pop("expand") == 0
     assert launches.pop("fine_dense") == 0
+    assert launches.pop("fine_paired") == 0
     assert all(v > 0 for v in launches.values()), kernels.LAUNCHES
     np.testing.assert_array_equal(got, cpu_render_scene(scene, r.config),
                                   err_msg=name)
@@ -1056,3 +1062,120 @@ def test_cuda_launches_count_replays(fine_impl):
     for _ in range(4):
         render(dev)
     assert kernels.LAUNCHES == {k: 5 * n for k, n in captured.items()}
+
+
+PAIR_SCENES = [
+    ("tiger_1x", lambda: make_tiger(scale=1.0), 512, 32, 128),
+    ("tiger_1x, 16x16 tiles", lambda: make_tiger(scale=1.0), 512, 16, 16),
+    ("clip_star", lambda: fixtures.get_scene("clip_star"), 256, 16, 128),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["compact", "hole"])
+@pytest.mark.parametrize("name,make,size,th,tw", PAIR_SCENES,
+                         ids=[s[0] for s in PAIR_SCENES])
+def test_cuda_paired_fine_equals_plain(name, make, size, th, tw, mode,
+                                       monkeypatch):
+    """Kernel D's paired instantiation against its plain version on the
+    card, on paired streams (F2 and L2 entries, holes, group commands);
+    pairing's compaction (the expand kernel) against its scatter and
+    gather; the paired frame against the oracle."""
+    _needs_cuda()
+    from piet_tpu_torch.ops import pairing
+    scene = make()
+    cfg = fit_capacities(scene, RenderConfig(width=size, height=size,
+                                             tile_height=th, tile_width=tw),
+                         bucket=True)
+    taps = {}
+    ce = coarse.coarse_rasterize(
+        prepare_scene(scene, cfg, "cuda"), tiles_x=cfg.tiles_x,
+        tiles_y=cfg.tiles_y, tile_w=cfg.tile_width, tile_h=cfg.tile_height,
+        max_segments=cfg.max_segments, max_hits=cfg.max_hits,
+        max_candidates=cfg.max_candidates, pair=mode, taps=taps)
+    args = (ce.first, ce.n_entries, _solid_to_present_u32(ce.solid),
+            ce.stream, 0)
+    kw = dict(tile_h=cfg.tile_height, tile_w=cfg.tile_width,
+              tiles_x=cfg.tiles_x, paired=True)
+    kernels.reset_launches()
+    got = fine.fine_rasterize_entries(*args, **kw)
+    assert kernels.LAUNCHES["fine_paired"] == 1
+    assert kernels.LAUNCHES["fine"] == 0
+    assert torch.equal(got, fine.fine_rasterize_entries_plain(*args, **kw))
+    if mode == "compact":
+        bundle, keep = taps["pairing"]
+        assert torch.equal(pairing.compact_rows(bundle, keep),
+                           pairing.compact_rows_plain(bundle, keep))
+    monkeypatch.setenv("PIET_PAIR", mode)
+    r = Renderer(cfg, "cuda", fine_impl="entries")
+    kernels.reset_launches()
+    np.testing.assert_array_equal(r.render(scene),
+                                  cpu_render_scene(scene, cfg))
+    assert kernels.LAUNCHES["expand"] == (mode == "compact")
+    assert kernels.LAUNCHES["fine_paired"] == 1
+    assert kernels.LAUNCHES["fine"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fine_impl", ["entries", "dense"])
+@pytest.mark.parametrize("n,interleave", [(4, 1), (2, 2)])
+def test_cuda_sharded_frame_equals_one_slab(n, interleave, fine_impl):
+    """Row slabs on one card (each mesh's slabs one CUDA graph, segments
+    derived at each slab's row0): the frame equals the one-slab frame and
+    the oracle, bit for bit."""
+    _needs_cuda()
+    from piet_tpu_torch.parallel import ShardedRenderer
+    scene = make_tiger(scale=1.0)
+    cfg = fit_capacities(scene, RenderConfig(width=512, height=512,
+                                             tile_height=16, tile_width=128),
+                         bucket=True)
+    one = Renderer(cfg, "cuda", fine_impl=fine_impl).render(scene)
+    sr = ShardedRenderer(cfg, ["cuda:0"] * n, fine_impl=fine_impl,
+                         interleave=interleave)
+    kernels.reset_launches()
+    got = sr.render(scene)
+    assert kernels.LAUNCHES["expand"] == n * interleave
+    np.testing.assert_array_equal(got, one)
+    np.testing.assert_array_equal(got, cpu_render_scene(scene, cfg))
+    assert sr._render.n_graphs() == 1
+    assert np.array_equal(sr.render(scene), got)
+
+
+@pytest.mark.cuda
+def test_cuda_dryrun_multichip():
+    _needs_cuda()
+    from piet_tpu_torch import entry
+    entry.dryrun_multichip(4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fine_impl", ["entries", "dense"])
+def test_cuda_sharded_frame_on_two_cards(fine_impl):
+    """Row slabs on two cards (cuda:0 and cuda:1, two slabs each): each
+    card's slabs are one CUDA graph on that card, and the gathered frame
+    equals the one-slab frame and the oracle, bit for bit."""
+    _needs_cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from piet_tpu_torch.parallel import ShardedRenderer
+    scene = make_tiger(scale=1.0)
+    cfg = fit_capacities(scene, RenderConfig(width=512, height=512,
+                                             tile_height=16, tile_width=128),
+                         bucket=True)
+    one = Renderer(cfg, "cuda:0", fine_impl=fine_impl).render(scene)
+    for mesh, il in ((["cuda:0", "cuda:1"], 1),
+                     (["cuda:0", "cuda:1", "cuda:0", "cuda:1"], 1),
+                     (["cuda:1", "cuda:0"], 2)):
+        sr = ShardedRenderer(cfg, mesh, fine_impl=fine_impl, interleave=il)
+        kernels.reset_launches()
+        got = sr.render(scene)
+        assert kernels.LAUNCHES["expand"] == len(mesh) * il, mesh
+        np.testing.assert_array_equal(got, one, err_msg=str(mesh))
+        np.testing.assert_array_equal(got, cpu_render_scene(scene, cfg))
+        assert sr._render.n_graphs() == 2
+        assert np.array_equal(sr.render(scene), got)
+    # The eager reference on the second card.
+    r1 = Renderer(cfg, "cuda:1", fine_impl=fine_impl)
+    img, _ = r1.render_device(r1.prepare(scene))
+    np.testing.assert_array_equal(
+        img.cpu().numpy().view(np.uint8).reshape(512, 512, 4), one)

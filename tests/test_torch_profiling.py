@@ -2,10 +2,10 @@
 coarse pass's stage probes, against the JAX package's profiler.
 
 What this pins on the CPU is the machinery: the probes cover the JAX
-stage order less "pairing" (not ported) and the stages folded into a
-kernel; ``with_probes`` and ``upto`` change nothing the pass computes
-(the same outputs bit for bit and the same torch calls, a prefix stopping
-after its stage); and ``profile_render`` returns every key of JAX's.
+stage order less the stages folded into a kernel; ``with_probes`` and
+``upto`` change nothing the pass computes (the same outputs bit for bit
+and the same torch calls, a prefix stopping after its stage); and
+``profile_render`` returns every key of JAX's.
 The numbers themselves are CPU times here, meaningless for the card.
 """
 
@@ -46,8 +46,7 @@ def _kw(cfg, output):
 
 def test_stage_order_is_jax_s():
     assert prof.STAGE_ORDER == jprof.STAGE_ORDER
-    assert prof.PROFILED == tuple(n for n in jprof.STAGE_ORDER
-                                  if n != "pairing")
+    assert prof.PROFILED == jprof.STAGE_ORDER
     assert set(prof.FOLDED.values()) <= set(coarse.PROBE_STAGES)
     assert coarse.PROBE_STAGES == tuple(
         n for n in prof.PROFILED if n not in prof.FOLDED)
@@ -56,12 +55,13 @@ def test_stage_order_is_jax_s():
 @pytest.mark.parametrize("output", ["entries", "dense"])
 def test_probes_cover_stage_order(output):
     """The device-derived segment stage runs every stage (the host-staged
-    one skips the segment stages); "runs" is the entries route's."""
+    one skips the segment stages); "runs" is the unpaired entries route's,
+    "pairing" the paired one's (test_paired_probes_cover_stage_order)."""
     scene, cfg = _tiny()
     dev = prepare_scene(scene, cfg, "cpu", seg_pre=False)
     out = coarse.coarse_rasterize(dev, with_probes=True, **_kw(cfg, output))
     want = [n for n in prof.PROFILED if n not in prof.FOLDED
-            and (output == "entries" or n != "runs")]
+            and n != "pairing" and (output == "entries" or n != "runs")]
     assert list(out.diag["probes"]) == want
     for name, vals in out.diag["probes"].items():
         assert vals and all(isinstance(v, torch.Tensor) for v in vals), name
@@ -120,7 +120,42 @@ def test_probes_and_upto_change_nothing(output, seg_pre):
         for a, b in zip(part[name], full[name]):
             assert torch.equal(_bits(a), _bits(b)), name
     with pytest.raises(ValueError, match="unknown stage"):
+        coarse.coarse_rasterize(dev, upto="no_such_stage", **kw)
+    with pytest.raises(ValueError, match="does not run"):
         coarse.coarse_rasterize(dev, upto="pairing", **kw)
+
+
+@pytest.mark.parametrize("mode", ["compact", "hole"])
+def test_paired_probes_cover_stage_order(mode):
+    """A paired entries pass runs "pairing" and not "runs"; a prefix up to
+    "pairing" stops right after it."""
+    scene, cfg = _tiny()
+    dev = prepare_scene(scene, cfg, "cpu")
+    kw = _kw(cfg, "entries")
+    out = coarse.coarse_rasterize(dev, with_probes=True, pair=mode, **kw)
+    want = [n for n in prof.PROFILED if n not in prof.FOLDED
+            and n != "runs" and not n.startswith("seg_")]
+    assert list(out.diag["probes"]) == want
+    part = coarse.coarse_rasterize(dev, upto="pairing", pair=mode, **kw)
+    assert list(part) == want[:want.index("pairing") + 1]
+    assert torch.equal(part["pairing"][0],
+                       out.diag["probes"]["pairing"][0])
+
+
+def test_profile_render_pairing_stage(monkeypatch):
+    """With PIET_PAIR set, the entries route's profile times "pairing"
+    (a stage it runs) and reads "runs" as 0.0; the dense route pairs
+    nothing."""
+    scene, cfg = _tiny()
+    monkeypatch.setenv("PIET_PAIR", "hole")
+    res = prof.profile_render(scene, cfg, fine_impl="entries", reps=2,
+                              device="cpu")
+    assert res["runs"] == 0.0 and res["pairing"] >= 0.0
+    assert list(res) == (["dispatch_floor"] + list(prof.PROFILED)
+                         + ["coarse_total", "fine", "end_to_end"])
+    dense = prof.profile_render(scene, cfg, fine_impl="dense", reps=2,
+                                device="cpu")
+    assert dense["pairing"] == dense["runs"] == 0.0
 
 
 def test_upto_a_stage_the_pass_does_not_run_raises():
@@ -145,7 +180,7 @@ def test_profile_render_has_jax_s_keys(fine_impl, jax_keys):
     scene, cfg = _tiny()
     res = prof.profile_render(scene, cfg, fine_impl=fine_impl, reps=2,
                               device="cpu")
-    want = [k for k in jax_keys if k != "pairing"]
+    want = list(jax_keys)
     assert [k for k in res if k in want] == want
     assert list(res) == (["dispatch_floor"] + list(prof.PROFILED)
                          + ["coarse_total", "fine", "end_to_end"])

@@ -117,15 +117,36 @@ def test_render_fn_outputs_are_fresh_and_inputs_static(impl):
     assert render.n_graphs() == 2
 
 
-def test_auto_is_the_entries_route():
+def test_auto_is_the_dense_route():
+    """"auto" resolves as JAX's does off a TPU ("xla", the port's
+    "dense"), and is every entry point's default."""
+    import inspect
+
+    from piet_tpu_torch import profiling
+    from piet_tpu_torch.renderer import renderer as port
+    from piet_tpu_torch.renderer.resize import ResizableRenderer
+    from piet_tpu_torch.scene import animate
+    names = {"xla": "dense", "pallas": "entries"}
+    assert port.resolve_fine_impl("auto") == names[
+        jax_renderer._resolve_fine_impl("auto")] == "dense"
+    for fn in (port.make_render_fn, port.make_render_sequence_fn,
+               port.make_time_render_fn, Renderer, Renderer.for_scene,
+               ResizableRenderer, ResizableRenderer.for_scene,
+               affine.make_affine_render_fn, animate.make_animated_render_fn,
+               profiling.profile_render):
+        assert inspect.signature(fn).parameters[
+            "fine_impl"].default == "auto", fn
     scene = _frames(1)[0]
     cfg = _cfg(scene)
     dev = prepare_scene(scene, cfg, "cpu")
     auto, stats = make_render_fn(cfg, device="cpu", fine_impl="auto")(dev)
-    entries, _ = make_render_fn(cfg, device="cpu")(dev)
-    assert torch.equal(auto, entries) and "live_entries" in stats
+    dense, _ = make_render_fn(cfg, device="cpu", fine_impl="dense")(dev)
+    default, _ = make_render_fn(cfg, device="cpu")(dev)
+    assert torch.equal(auto, dense) and torch.equal(default, dense)
+    assert "live_cmds" in stats and "live_entries" not in stats
     assert Renderer(cfg, device="cpu", fine_impl="auto").fine_impl == \
-        "entries"
+        "dense"
+    assert Renderer(cfg, device="cpu").fine_impl == "dense"
     with pytest.raises(ValueError, match="fine_impl"):
         make_render_fn(cfg, device="cpu", fine_impl="pallas")
 

@@ -50,7 +50,7 @@ SCENES = [
 def test_cpu_render_bitwise_equals_oracle(name, make, wh, th):
     scene = make()
     r = Renderer.for_scene(scene, *wh, device="cpu", tile_height=th,
-                           tile_width=128)
+                           tile_width=128, fine_impl="entries")
     img = r.render(scene)
     assert img.shape == (wh[1], wh[0], 4) and img.dtype == np.uint8
     np.testing.assert_array_equal(img, cpu_render_scene(scene, r.config),
@@ -64,7 +64,7 @@ def test_cpu_slab_bitwise_equals_oracle_rows(row0):
     built for that window, gives the oracle's rows of the full frame."""
     scene = fixtures.get_scene("clip_star")
     r = Renderer.for_scene(scene, 256, 256, device="cpu", tile_height=32,
-                           tile_width=128)
+                           tile_width=128, fine_impl="entries")
     cfg, rows = r.config, 3
     slab = dataclasses.replace(cfg, height=rows * cfg.tile_height)
     dev = prepare_scene(scene, cfg, "cpu")
@@ -72,7 +72,8 @@ def test_cpu_slab_bitwise_equals_oracle_rows(row0):
     dev = dev._replace(seg_pre=SegPre(*(
         torch.from_numpy(np.ascontiguousarray(getattr(sp, f)).view(np.int32))
         for f in SegPre._fields)))
-    img, _ = render_slab(dev, cfg, tiles_y=rows, row0=row0)
+    img, _ = render_slab(dev, cfg, tiles_y=rows, row0=row0,
+                         fine_impl="entries")
     got = img.numpy().view(np.uint8).reshape(rows * cfg.tile_height, -1, 4)
     y0 = row0 * cfg.tile_height
     want = cpu_render_scene(scene, cfg)[y0:y0 + rows * cfg.tile_height]
@@ -86,7 +87,7 @@ def test_cpu_render_matches_jax_interpret(name):
         width=256, height=256, tile_height=16, tile_width=128))
     want = jax_renderer.Renderer(cfg, fine_impl="pallas",
                                  interpret=True).render(scene)
-    got = Renderer(cfg, device="cpu").render(scene)
+    got = Renderer(cfg, device="cpu", fine_impl="entries").render(scene)
     assert_images_match(got, want, err_msg=name)
 
 
@@ -127,7 +128,7 @@ def test_too_small_capacity_raises(field, match):
     cfg = fit_capacities(scene, RenderConfig(width=256, height=256))
     small = dataclasses.replace(cfg, **{field: 128})
     with pytest.raises(SceneCapacityError, match=match):
-        Renderer(small, device="cpu").render(scene)
+        Renderer(small, device="cpu", fine_impl="entries").render(scene)
 
 
 def test_cuda_renderer_raises_without_cuda(monkeypatch):

@@ -266,3 +266,20 @@ def test_radix_schedule_on_beziers_keys(bucket):
     plan = sort_plan(val.shape[0], bounds)
     assert plan.cluster == 0 and len(plan.passes) == 3
     _hold(_onesweep_emulation(keys, val, bounds, plan), keys, val)
+
+
+@pytest.mark.parametrize("n,hi", [(300, 1000), (4096, 17)])
+def test_stable_sort_pairs_matches_jax(n, hi):
+    """The one-key wrapper against JAX's ``stable_sort_pairs``: f32 keys
+    with heavy duplication and dead (+inf) keys."""
+    from piet_tpu.ops.sort import stable_sort_pairs as jax_pairs
+    from piet_tpu_torch.ops.sort import stable_sort_pairs
+    rng = np.random.default_rng(n)
+    key = rng.integers(0, hi, n).astype(np.float32)
+    key[rng.random(n) < 0.1] = np.inf
+    val = rng.permutation(n).astype(np.int32)
+    wk, wv = jax_pairs(jnp.asarray(key), jnp.asarray(val), impl="xla")
+    gk, gv = stable_sort_pairs(torch.from_numpy(key), torch.from_numpy(val),
+                               bound=hi)
+    np.testing.assert_array_equal(gk.numpy(), np.asarray(wk))
+    np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
