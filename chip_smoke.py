@@ -128,14 +128,27 @@ and exits non-zero:
      C++ golden rasterizer's tiger beside the card's frame; host staging
      (fit_capacities, build_seg_pre, prepare_scene) timed.  Every image
      is held against the numpy oracle bitwise (the oracle images of
-     phases 4 and 5 shared).
+     phases 4 and 5 shared);
+  8. the tools (piet_tpu_torch/tools/, the JAX package's tools/ that
+     reach a Pallas kernel): div_probe, mosaic_numerics_probe,
+     half_experiment, arg_delivery_bench and fine_entry_bench run through
+     their ``main`` at the JAX tools' sizes, their lines printed after the
+     card's nvidia-smi line, the launch counters reset before and read
+     after (each of the four probe kernels of csrc/probes.cu must have
+     run); then each probe kernel bitwise against its plain version on
+     the tools' inputs (every op and shape, state type and grid,
+     variant), probe_div and probe_numerics 0 words off the numpy mirror
+     (a mismatch fails the run), kernel D against its plain version on
+     the bench's four streams, and each probe kernel timed beside its
+     plain version and its bound.
 
 The line before the last is the kernel table as JSON, each kernel with
 the path whose run gave its launch count (and, under "paths", every path
 read: sort's second is the beziers_10k frame), the sort with its
 device-memory route's times, kernel D's paired instantiation
 ("fine_paired") and expand as pairing's compaction ("expand_pairing")
-with the launches of phase 4e's paired frames; the last line is
+with the launches of phase 4e's paired frames, and the four probe
+kernels with phase 8's; the last line is
 {"ok": true,
 "device": {...}}.  Exits non-zero without a result when no CUDA device is
 present.
@@ -253,6 +266,13 @@ def bitwise(a, b):
     err = float(torch.nan_to_num(diff[bad], nan=float("inf")).max()) \
         if n_bad else 0.0
     return n_bad, err
+
+
+def frame_counts(launches) -> dict:
+    """The launch counts of the frame's kernels: ``launches`` without the
+    tools' probe kernels, which no frame runs."""
+    from piet_tpu_torch.ops import probes
+    return {k: v for k, v in launches.items() if k not in probes.KERNELS}
 
 
 def nbytes(*tensors) -> int:
@@ -1011,7 +1031,7 @@ def main() -> int:
         # A static scene stages its segments on the host: no expansion;
         # the entries route runs no dense interpreter.
         assert launches["expand"] == launches["fine_dense"] == 0, launches
-        assert all(v > 0 for k, v in launches.items()
+        assert all(v > 0 for k, v in frame_counts(launches).items()
                    if k not in ("expand", "fine_dense", "fine_paired")), \
             launches
         assert launches["keyed"] == 1, launches
@@ -1038,7 +1058,7 @@ def main() -> int:
         assert st["overflow_cmds"] == 0, st
         assert launches["fine_dense"] > 0 and launches["fine"] == 0, launches
         assert launches["expand"] == 0, launches
-        assert all(v > 0 for k, v in launches.items()
+        assert all(v > 0 for k, v in frame_counts(launches).items()
                    if k not in ("expand", "fine", "fine_paired")), launches
     for name, gr in group_renderers.items():
         sc = group_scenes[name]
@@ -1066,7 +1086,7 @@ def main() -> int:
           f"launches {dict(kernels.LAUNCHES)}; overflow "
           f"{int(stats['overflow_cmds'])}", flush=True)
     assert n_bad == 0 and int(stats["overflow_cmds"]) == 0
-    assert all(v > 0 for k, v in kernels.LAUNCHES.items()
+    assert all(v > 0 for k, v in frame_counts(kernels.LAUNCHES).items()
                if k not in ("fine", "fine_paired"))
     # The renderer's other entry points on host-built animated frames.
     from piet_tpu_torch.scene.fixtures import make_animated_frame
@@ -1316,7 +1336,7 @@ def main() -> int:
         print(f"launches {tag} ({len(T_FRAMES)} frames): {launches}",
               flush=True)
         assert launches["fine_dense"] == 0, launches
-        assert all(v > 0 for k, v in launches.items()
+        assert all(v > 0 for k, v in frame_counts(launches).items()
                    if k not in ("fine_dense", "fine_paired")), launches
         # Per frame: kernel A one call, gatherm two (endpoints, backdrop).
         assert launches["candfuse"] == len(T_FRAMES), launches
@@ -1595,6 +1615,9 @@ def main() -> int:
                           aff_render, aff_ni, aff_np, anim_render, anim_ni,
                           anim_np, anim_golds)
 
+    # ---- 8. the tools ----------------------------------------------------
+    tool_table = phase_tools(card, dev)
+
     # Each kernel's launches on a path that runs it: the affine tiger's two
     # frames (entries route) for the seven, one dense static tiger frame
     # for fine_dense.
@@ -1622,6 +1645,9 @@ def main() -> int:
     table["sort"]["device_memory_route"] = route2
     for name, runs in cli_paths.items():
         paths[name] += runs
+    for name, k in tool_table.items():
+        paths[name] = [(k["path"], k["launches"])]
+    table.update(tool_table)
     print(json.dumps({"kernels": [
         {"name": name, "route": k["route"], "source": k["source"],
          "replaces": k["replaces"], "path": paths[name][0][0],
@@ -1909,6 +1935,196 @@ def phase_cli(card, dev, scene, cfg, tiger_gold, aff_render, aff_ni,
     print(f"phase 7 (the command line): {time.perf_counter() - t_phase:.1f} "
           f"s", flush=True)
     return paths
+
+
+#: The tools' kernels (csrc/probes.cu), each with the JAX tool function
+#: whose Pallas kernel it replaces.
+TOOL_KERNELS = {
+    "probe_div": "tools/div_probe.py:27",
+    "probe_numerics": "tools/mosaic_numerics_probe.py:35",
+    "probe_halfmix": "tools/half_experiment.py:49",
+    "probe_delivery": "tools/arg_delivery_bench.py:278",
+}
+
+
+def phase_tools(card, dev) -> dict:
+    """Phase 8: the five tools of piet_tpu_torch/tools/ as a user runs
+    them (``main``), at the JAX tools' sizes, the launch counters reset
+    before and read after (each of the four probe kernels must have run);
+    then each probe kernel bitwise against its plain version on the
+    tools' own inputs, probe_div and probe_numerics 0 words off the numpy
+    mirror (else the run fails), kernel D against its plain version on
+    the bench's streams; and each probe kernel timed beside its plain
+    version and its bound.  Returns the kernel table's rows."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from piet_tpu_torch import kernels
+    from piet_tpu_torch.ops import fine, probes
+    from piet_tpu_torch.roofline import bound
+    from piet_tpu_torch.tools import (arg_delivery_bench, div_probe,
+                                      fine_entry_bench, half_experiment,
+                                      mosaic_numerics_probe)
+
+    t_phase = time.perf_counter()
+    print(card, flush=True)
+    tools = ((div_probe, ()), (mosaic_numerics_probe, ([],)),
+             (half_experiment, ()), (arg_delivery_bench, ([],)),
+             (fine_entry_bench, ([],)))
+    kernels.reset_launches()
+    for tool, args in tools:
+        name = tool.__name__.rsplit(".", 1)[-1]
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = tool.main(*args)
+        torch.cuda.synchronize()
+        assert rc == 0, name
+        for line in buf.getvalue().splitlines():
+            print(f"tool {name}: {line}", flush=True)
+        print(f"tool {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    launches = {k: kernels.LAUNCHES[k] for k in probes.KERNELS}
+    print(f"launches phase 8 (tools): {launches}, fine "
+          f"{kernels.LAUNCHES['fine']}", flush=True)
+    assert all(n > 0 for n in launches.values()), launches
+    assert kernels.LAUNCHES["fine"] > 0
+
+    # probe_div on the tool's 2^20 operands: against the plain division
+    # (torch's) and numpy's IEEE quotient.
+    a, b = div_probe.operands()
+    at, bt = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+    div_out = probes.probe_div(at, bt)
+    checks = {"probe_div": [bitwise(div_out, probes.probe_div_plain(at, bt))]}
+    off = div_probe.words_off(div_out.cpu().numpy(), a / b)
+    print(f"tool probe_div: {off} words off numpy of {a.size}", flush=True)
+    assert off == 0, "probe_div differs from numpy's quotient"
+
+    # probe_numerics: every op at both shapes, the 16 batches in one
+    # launch, against its plain version and the strict numpy mirror.
+    num_in = mosaic_numerics_probe.inputs()
+    checks["probe_numerics"] = []
+    num_calls = []
+    for (name, shape), batches in num_in.items():
+        ins = [torch.from_numpy(np.stack(c)).to(dev) for c in zip(*batches)]
+        got = probes.probe_numerics(name, *ins)
+        checks["probe_numerics"].append(
+            bitwise(got, probes.probe_numerics_plain(name, *ins)))
+        bad, tot, worst = mosaic_numerics_probe.compare(
+            name, batches, got.cpu().numpy())
+        print(f"tool probe_numerics {name} {shape}: {bad}/{tot} words off "
+              f"the numpy mirror, worst ulp {worst}", flush=True)
+        assert bad == 0, f"probe_numerics {name} {shape} differs from numpy"
+        num_calls.append((name, ins))
+
+    # probe_halfmix at the tool's shapes and N_ITER, both grids, all three
+    # state types.
+    checks["probe_halfmix"] = []
+    for tiles in half_experiment.TILES:
+        for shape in half_experiment.SHAPES:
+            init = probes.halfmix_init(shape[0], dev)
+            for kind in probes.HALFMIX_KINDS:
+                n_it = half_experiment.N_ITER
+                checks["probe_halfmix"].append(bitwise(
+                    probes.probe_halfmix(init, kind, tiles, n_it),
+                    probes.probe_halfmix_plain(init, kind, tiles, n_it)))
+
+    # probe_delivery: every variant on the tool's stream (N, REPS).  The
+    # dispatch variant's state ends at +inf everywhere there (178
+    # multiplies past its last tag-3 entry), so it is held also on the
+    # stream's first 87 entries, whose last is its first tag-3 entry and
+    # whose state ends finite.  The min variants' results cannot show
+    # how many passes ran (a minimum is idempotent): their times can.
+    data = arg_delivery_bench.data(device=dev)
+    reps = arg_delivery_bench.REPS
+    checks["probe_delivery"] = []
+    for v in probes.DELIVERY_VARIANTS:
+        cases = [data] + ([data[:87].clone()] if v == "disp16" else [])
+        for x in cases:
+            got = probes.probe_delivery(x, v, reps)
+            checks["probe_delivery"].append(
+                bitwise(got, probes.probe_delivery_plain(x, v, reps)))
+            if v != "disp16" or x is not data:
+                assert torch.isfinite(got).all(), f"probe_delivery {v}"
+
+    # Kernel D on the bench's streams (n = 34 a tile, each mix).
+    fe_bad = 0
+    for mix in fine_entry_bench.MIXES:
+        args = fine_entry_bench.inputs(mix, 34, dev)
+        fk = dict(tile_h=fine_entry_bench.TILE_H,
+                  tile_w=fine_entry_bench.TILE_W,
+                  tiles_x=fine_entry_bench.TILES_X)
+        fe_bad += bitwise(fine_entry_bench.render(args),
+                          fine.fine_rasterize_entries_plain(*args, **fk))[0]
+    print(f"tool fine_entry_bench: kernel D {fe_bad} words off its plain "
+          f"version on the 4 mixes at n=34", flush=True)
+    assert fe_bad == 0
+
+    rows = {}
+    for name, res in checks.items():
+        n_bad = sum(r[0] for r in res)
+        err = max(r[1] for r in res)
+        print(f"kernel {name}: {n_bad} mismatching words vs plain "
+              f"(tolerance 0) over {len(res)} calls, max abs err {err}",
+              flush=True)
+        assert n_bad == 0, f"kernel {name} disagrees with its plain version"
+        rows[name] = dict(route="cuda", source="piet_tpu_torch/csrc/probes.cu",
+                          replaces=TOOL_KERNELS[name], max_abs_err=err,
+                          path="phase 8 (tools): the five tools' main, "
+                          "sizes as the JAX tools'",
+                          launches=launches[name], library=None)
+
+    # Timed calls: the tool's full call of each kernel.  Bytes: each input
+    # read once and each output written once; operations: the f32 work of
+    # the chain on this run's data (ops/probes.py).
+    hm_shape, hm_tiles = half_experiment.SHAPES[0], half_experiment.TILES[1]
+    hm_init = probes.halfmix_init(hm_shape[0], dev)
+    n_it = half_experiment.N_ITER
+    rows["probe_div"].update(
+        time=lambda: probes.probe_div(at, bt),
+        time_plain=lambda: probes.probe_div_plain(at, bt),
+        library=lambda: torch.div(at, bt), bytes=3 * at.numel() * 4,
+        timed="the tool's 2^20 operands")
+    rows["probe_numerics"].update(
+        time=lambda: [probes.probe_numerics(n, *i) for n, i in num_calls],
+        time_plain=lambda: [probes.probe_numerics_plain(n, *i)
+                            for n, i in num_calls],
+        bytes=sum((len(i) + 1) * i[0].numel() * 4 for _, i in num_calls),
+        timed="the 8 ops at both shapes, 16 batches a launch")
+    rows["probe_halfmix"].update(
+        time=lambda: probes.probe_halfmix(hm_init, "float32", hm_tiles,
+                                          n_it),
+        time_plain=lambda: probes.probe_halfmix_plain(
+            hm_init, "float32", hm_tiles, n_it),
+        bytes=hm_init.numel() * 4 + hm_tiles * hm_init[0].numel() * 4,
+        ops=(hm_tiles * hm_init[0].numel() * n_it
+             * probes.HALFMIX_OPS_PER_STEP),
+        timed=f"f32, {hm_shape}, {hm_tiles} tiles, {n_it} steps")
+    rows["probe_delivery"].update(
+        time=lambda: probes.probe_delivery(data, "smem", reps),
+        time_plain=lambda: probes.probe_delivery_plain(data, "smem", reps),
+        bytes=data.numel() * 4 + 8 * 128 * 4,
+        ops=probes.delivery_ops(data, "smem", reps),
+        timed=f"smem, {data.shape[0]} entries x {reps}, one tile")
+    for name, k in rows.items():
+        slow = name in ("probe_halfmix", "probe_delivery")
+        k["ms"] = time_ms(k["time"], reps=3 if slow else 20, warm=1)
+        k["plain_ms"] = time_ms(k["time_plain"], reps=1 if slow else 20,
+                                warm=0 if slow else 1)
+        k["library_ms"] = (time_ms(k["library"], reps=20, warm=2)
+                           if k["library"] else None)
+        k["bound_ms"], k["bound_by"] = bound(k["bytes"], k.get("ops", 0.0))
+        lib_txt = (f"{k['library_ms']:.4f} ms" if k["library_ms"] is not None
+                   else "none")
+        print(f"timing kernel {name} [{card}]: {k['ms']:.4f} ms device, "
+              f"plain version {k['plain_ms']:.4f} ms, library call "
+              f"{lib_txt}, bound {k['bound_ms']:.5f} ms ({k['bound_by']}: "
+              f"{k['bytes']} B, {k.get('ops', 0)} f32 ops; {k['timed']})",
+              flush=True)
+    print(f"phase 8 (tools): {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return rows
 
 
 def plain_cand_stage(scene, cap, kw):

@@ -35,12 +35,18 @@ print(" ".join(names))
 """
 
 #: Modules the port must have beside the kernels' path: the command line
-#: and what it stands on.
+#: and what it stands on, and the tools (the JAX package's tools/ that
+#: reach a Pallas kernel) with their kernels' module.
 REQUIRED = {"piet_tpu_torch.cli", "piet_tpu_torch.__main__",
             "piet_tpu_torch.profiling", "piet_tpu_torch.roofline",
             "piet_tpu_torch.native", "piet_tpu_torch.entry",
             "piet_tpu_torch.api", "piet_tpu_torch.scene.wire",
-            "piet_tpu_torch.scene.svg_full"}
+            "piet_tpu_torch.scene.svg_full", "piet_tpu_torch.ops.probes",
+            "piet_tpu_torch.tools.div_probe",
+            "piet_tpu_torch.tools.mosaic_numerics_probe",
+            "piet_tpu_torch.tools.half_experiment",
+            "piet_tpu_torch.tools.arg_delivery_bench",
+            "piet_tpu_torch.tools.fine_entry_bench"}
 
 
 def _run(args, cwd):

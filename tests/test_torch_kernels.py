@@ -22,7 +22,7 @@ torch.set_num_threads(1)
 from piet_tpu_torch import kernels
 from piet_tpu_torch.config import RenderConfig
 from piet_tpu_torch.ops import (candfuse, coarse, expand, fine, fine_xla,
-                                gatherm, hitfuse, keyed, sort)
+                                gatherm, hitfuse, keyed, probes, sort)
 from piet_tpu_torch.raster.cpu_fine import cpu_render_scene
 from piet_tpu_torch.raster.synth_ptcl import synth_dense_ptcl
 from piet_tpu_torch.renderer.capacity import fit_capacities
@@ -137,11 +137,13 @@ def _c_entry_points(text: str) -> dict:
 
 def test_every_kernel_has_an_entry_point_and_a_counter():
     """Each .cu source defines C entry points, and one launch counter
-    counts them (kernel D's paired instantiation has a second one); every
+    counts them (kernel D's paired instantiation has a second one; the
+    four kernels of probes.cu, the tools', one each); every
     entry point's ctypes signature matches its C parameters, the stream
     last."""
-    names = {p.stem for p in kernels.CSRC.glob("*.cu")}
-    assert names | {"fine_paired"} == set(kernels.LAUNCHES)
+    names = {p.stem for p in kernels.CSRC.glob("*.cu")} - {"probes"}
+    assert (names | {"fine_paired"} | set(probes.KERNELS)
+            == set(kernels.LAUNCHES))
     found = {}
     for src in kernels.CSRC.glob("*.cu"):
         entries = _c_entry_points(src.read_text())
@@ -567,7 +569,8 @@ def test_cuda_animated_frame_equals_oracle(t):
     launches = dict(kernels.LAUNCHES)
     assert launches.pop("fine_dense") == 0     # the entries route
     assert launches.pop("fine_paired") == 0    # an unpaired stream
-    assert all(v > 0 for v in launches.values()), kernels.LAUNCHES
+    assert all(v > 0 for k, v in launches.items()
+               if k not in probes.KERNELS), kernels.LAUNCHES
     got = img.cpu().numpy().view(np.uint8).reshape(256, 256, 4)
     frame = fetch_scene(render_t.scene_at(t), tmpl.n_items, tmpl.n_points)
     np.testing.assert_array_equal(got, cpu_render_scene(frame, cfg))
@@ -651,7 +654,8 @@ def test_cuda_render_bitwise_equals_oracle(name, make, size, th):
     assert launches.pop("expand") == 0
     assert launches.pop("fine_dense") == 0
     assert launches.pop("fine_paired") == 0
-    assert all(v > 0 for v in launches.values()), kernels.LAUNCHES
+    assert all(v > 0 for k, v in launches.items()
+               if k not in probes.KERNELS), kernels.LAUNCHES
     np.testing.assert_array_equal(got, cpu_render_scene(scene, r.config),
                                   err_msg=name)
 
@@ -1179,3 +1183,64 @@ def test_cuda_sharded_frame_on_two_cards(fine_impl):
     img, _ = r1.render_device(r1.prepare(scene))
     np.testing.assert_array_equal(
         img.cpu().numpy().view(np.uint8).reshape(512, 512, 4), one)
+
+
+# ---- the tools' kernels (csrc/probes.cu) ---------------------------------
+
+@pytest.mark.cuda
+def test_cuda_probe_div_equals_plain_and_numpy():
+    """On the tool's 2^20 operands: bitwise torch's division and numpy's
+    IEEE quotient (-prec-div=true)."""
+    _needs_cuda()
+    from piet_tpu_torch.tools import div_probe
+    a, b = div_probe.operands()
+    at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    kernels.reset_launches()
+    got = probes.probe_div(at, bt)
+    assert kernels.LAUNCHES["probe_div"] == 1
+    assert _same_bits(got, probes.probe_div_plain(at, bt))
+    assert _same_bits(got.cpu(), torch.from_numpy(a / b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(probes.NUMERICS_OPS))
+def test_cuda_probe_numerics_equals_plain_and_mirror(name):
+    """Each op on the tool's inputs (16 batches, both shapes): bitwise
+    its plain version on the card and the tool's strict numpy mirror."""
+    _needs_cuda()
+    from piet_tpu_torch.tools import mosaic_numerics_probe as mnp
+    for (_, shape), batches in mnp.inputs([name]).items():
+        got = mnp.run(name, batches, device="cuda")
+        ins = [torch.from_numpy(np.stack(c)).cuda() for c in zip(*batches)]
+        want = probes.probe_numerics_plain(name, *ins).cpu().numpy()
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      want.view(np.int32))
+        assert mnp.compare(name, batches, got)[0] == 0, (name, shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 128), (32, 128)])
+@pytest.mark.parametrize("kind", list(probes.HALFMIX_KINDS))
+def test_cuda_probe_halfmix_equals_plain(kind, shape):
+    _needs_cuda()
+    init = probes.halfmix_init(shape[0], "cuda")
+    got = probes.probe_halfmix(init, kind, 3, 300)
+    want = probes.probe_halfmix_plain(init, kind, 3, 300)
+    assert got.shape == (3,) + shape
+    assert _same_bits(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", list(probes.DELIVERY_VARIANTS))
+def test_cuda_probe_delivery_equals_plain(variant):
+    """256 entries of the tool's stream, 2 passes; the dispatch variant
+    also on its first 87 entries, whose last is a tag-3 entry (the
+    state ends finite)."""
+    _needs_cuda()
+    from piet_tpu_torch.tools import arg_delivery_bench
+    d = arg_delivery_bench.data(256, device="cuda")
+    cases = [d] + ([d[:87].clone()] if variant == "disp16" else [])
+    for x in cases:
+        got = probes.probe_delivery(x, variant, 2)
+        assert _same_bits(got, probes.probe_delivery_plain(x, variant, 2))
+    assert torch.isfinite(got).all()
