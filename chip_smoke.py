@@ -140,15 +140,31 @@ and exits non-zero:
      variant), probe_div and probe_numerics 0 words off the numpy mirror
      (a mismatch fails the run), kernel D against its plain version on
      the bench's four streams, and each probe kernel timed beside its
-     plain version and its bound.
+     plain version and its bound;
+  9. the rest of the tools: mosaic_probe (every probe of the JAX tool,
+     kernel against plain at both fills of its unwritten scratch),
+     grad_exact_probe and grad_tile_probe (the gradient demo on kernel
+     D), group_stats on tiger_8x, mesh_balance (8 slabs on this card),
+     eng_bisect_probe and eng_array_probe (the 224^2 tiger, card against
+     CPU by stage and by kernel), engine_probe (the headline scene, card
+     against CPU, each kernel alone; one process a setting),
+     dispatch_probe and precompile_cache, each through its ``main``,
+     lines printed after the card's nvidia-smi line, the launch counters
+     reset before and read after (probe_mosaic 22 probes x 2 fills or
+     more, probe_dma16 2 or more); then all 23 probes kernel against
+     plain at both fills, on the card and against the CPU (0 words off),
+     engine_probe's leaves and bisect at 0 words off, the gradient demo
+     0 pixels off the oracle, and the two probe kernels timed beside
+     their plain versions and their bound by bytes.
 
 The line before the last is the kernel table as JSON, each kernel with
 the path whose run gave its launch count (and, under "paths", every path
 read: sort's second is the beziers_10k frame), the sort with its
 device-memory route's times, kernel D's paired instantiation
 ("fine_paired") and expand as pairing's compaction ("expand_pairing")
-with the launches of phase 4e's paired frames, and the four probe
-kernels with phase 8's; the last line is
+with the launches of phase 4e's paired frames, the four probe
+kernels with phase 8's and the two access-pattern probe kernels with
+phase 9's; the last line is
 {"ok": true,
 "device": {...}}.  Exits non-zero without a result when no CUDA device is
 present.
@@ -1618,6 +1634,9 @@ def main() -> int:
     # ---- 8. the tools ----------------------------------------------------
     tool_table = phase_tools(card, dev)
 
+    # ---- 9. the rest of the tools ----------------------------------------
+    tool_table.update(phase_diag_tools(card, dev))
+
     # Each kernel's launches on a path that runs it: the affine tiger's two
     # frames (entries route) for the seven, one dense static tiger frame
     # for fine_dense.
@@ -1985,7 +2004,7 @@ def phase_tools(card, dev) -> dict:
         for line in buf.getvalue().splitlines():
             print(f"tool {name}: {line}", flush=True)
         print(f"tool {name}: {time.perf_counter() - t0:.1f} s", flush=True)
-    launches = {k: kernels.LAUNCHES[k] for k in probes.KERNELS}
+    launches = {k: kernels.LAUNCHES[k] for k in TOOL_KERNELS}
     print(f"launches phase 8 (tools): {launches}, fine "
           f"{kernels.LAUNCHES['fine']}", flush=True)
     assert all(n > 0 for n in launches.values()), launches
@@ -2124,6 +2143,138 @@ def phase_tools(card, dev) -> dict:
               flush=True)
     print(f"phase 8 (tools): {time.perf_counter() - t_phase:.1f} s",
           flush=True)
+    return rows
+
+
+#: The access-pattern probes' kernels (csrc/mosaic_probe.cu), each with
+#: the JAX tool function whose Pallas kernel it replaces.
+MOSAIC_KERNELS = {
+    "probe_mosaic": "tools/mosaic_probe.py:33",
+    "probe_dma16": "tools/mosaic_probe.py:152",
+}
+#: The tools of phase 9 and the arguments their ``main`` gets.
+DIAG_TOOLS = (("mosaic_probe", []), ("grad_exact_probe", []),
+              ("grad_tile_probe", []), ("group_stats", ["tiger_8x"]),
+              ("mesh_balance", []), ("eng_bisect_probe", []),
+              ("eng_array_probe", []), ("engine_probe", []),
+              ("dispatch_probe", []), ("precompile_cache", []))
+
+
+def phase_diag_tools(card, dev) -> dict:
+    """Phase 9: the rest of the tools as a user runs them (``main``), the
+    launch counters reset before and read after (probe_mosaic at least 22
+    probes x 2 fills, probe_dma16 at least 2); then all 23 probes of
+    mosaic_probe, kernel against plain, at both fills (0 words off, on
+    the card and against the plain version on the CPU), engine_probe's
+    leaves and every kernel of its bisect at 0 words off, the gradient
+    demo at 0 pixels off the oracle; and both probe kernels timed, every
+    probe in turn, beside the plain versions and the bound by bytes.
+    Returns the kernel table's rows."""
+    import contextlib
+    import importlib
+    import io
+
+    import torch
+    from piet_tpu_torch import kernels
+    from piet_tpu_torch.ops import probes
+    from piet_tpu_torch.roofline import bound
+    from piet_tpu_torch.tools import mosaic_probe
+
+    t_phase = time.perf_counter()
+    print(card, flush=True)
+    kernels.reset_launches()
+    out = {}
+    for name, args in DIAG_TOOLS:
+        tool = importlib.import_module(f"piet_tpu_torch.tools.{name}")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = tool.main(list(args))
+        torch.cuda.synchronize()
+        out[name] = buf.getvalue().splitlines()
+        for line in out[name]:
+            print(f"tool {name}: {line}", flush=True)
+        print(f"tool {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+        assert rc == 0, name
+    launches = {k: kernels.LAUNCHES[k] for k in MOSAIC_KERNELS}
+    print(f"launches phase 9 (the rest of the tools): {launches}",
+          flush=True)
+    n_mosaic = len(probes.MOSAIC_PROBES)
+    assert launches["probe_mosaic"] >= n_mosaic * len(probes.FILLS)
+    assert launches["probe_dma16"] >= len(probes.FILLS)
+    assert out["mosaic_probe"] == [f"{n}: OK" for n in mosaic_probe.PROBES]
+    verdict = json.loads(out["engine_probe"][-1])
+    assert verdict["engines_bit_identical"] is True, verdict
+    assert verdict["bisect"] and all(v is True for v in
+                                     verdict["bisect"].values()), verdict
+    assert "[full demo] mismatched px: 0" in out["grad_exact_probe"]
+
+    # Every probe, kernel against plain at both fills: on the card, and
+    # against the plain version on the CPU (the NaN words included).
+    xs = {n: torch.from_numpy(mosaic_probe.probe_input(n)).to(dev)
+          for n in mosaic_probe.PROBES}
+    checks = {k: [] for k in MOSAIC_KERNELS}
+    for n, x in xs.items():
+        k = "probe_dma16" if n == "dma_16lane" else "probe_mosaic"
+        for fill in probes.FILLS:
+            got = mosaic_probe.run(n, x, fill)
+            torch.cuda.synchronize()
+            res = [bitwise(got, mosaic_probe.run_plain(n, x, fill)),
+                   bitwise(got.cpu(), mosaic_probe.run_plain(n, x.cpu(),
+                                                             fill))]
+            checks[k] += res
+            print(f"probe {n} fill {fill:#010x}: {res[0][0]} words off the "
+                  f"plain version on the card, {res[1][0]} on the CPU",
+                  flush=True)
+    rows = {}
+    for name, res in checks.items():
+        n_bad = sum(r[0] for r in res)
+        err = max(r[1] for r in res)
+        print(f"kernel {name}: {n_bad} mismatching words vs plain "
+              f"(tolerance 0) over {len(res)} comparisons, max abs err "
+              f"{err}", flush=True)
+        assert n_bad == 0, f"kernel {name} disagrees with its plain version"
+        rows[name] = dict(route="cuda",
+                          source="piet_tpu_torch/csrc/mosaic_probe.cu",
+                          replaces=MOSAIC_KERNELS[name], max_abs_err=err,
+                          path="phase 9 (the rest of the tools): "
+                          "mosaic_probe's main, every probe at both fills",
+                          launches=launches[name], library_ms=None)
+
+    # Timed: every probe in turn (one launch each), and the DMA probe.
+    # Bytes: the input read once and the output written once a probe; the
+    # DMA probe reads the 896 rows its four copies reach.
+    names = list(probes.MOSAIC_PROBES)
+    nan = probes.FILL_NAN
+    per = {}
+    for n in names:
+        per[n] = time_ms(lambda n=n: probes.probe_mosaic(n, xs[n], nan),
+                         reps=50, warm=2)
+    print("timing probe_mosaic per probe [" + card + "]: " + ", ".join(
+        f"{n} {ms:.4f}" for n, ms in per.items()) + " ms", flush=True)
+    io_bytes = (16 * 128 + 8 * 128) * 4
+    xd = xs["dma_16lane"]
+    rows["probe_mosaic"].update(
+        time=lambda: [probes.probe_mosaic(n, xs[n], nan) for n in names],
+        time_plain=lambda: [probes.probe_mosaic_plain(n, xs[n], nan)
+                            for n in names],
+        bytes=io_bytes * len(names),
+        timed=f"the {len(names)} probes in turn, one launch each")
+    rows["probe_dma16"].update(
+        time=lambda: probes.probe_dma16(xd, nan),
+        time_plain=lambda: probes.probe_dma16_plain(xd, nan),
+        bytes=(probes.DMA16_MIN_ROWS * 16 + 8 * 128) * 4,
+        timed="(1024, 16) input, four 32 KiB copies")
+    for name, k in rows.items():
+        k["ms"] = time_ms(k["time"], reps=20, warm=2)
+        k["plain_ms"] = time_ms(k["time_plain"], reps=5, warm=1)
+        k["bound_ms"], k["bound_by"] = bound(k["bytes"])
+        print(f"timing kernel {name} [{card}]: {k['ms']:.4f} ms device, "
+              f"plain version {k['plain_ms']:.4f} ms, library call none, "
+              f"bound {k['bound_ms']:.6f} ms ({k['bound_by']}: "
+              f"{k['bytes']} B; {k['timed']})", flush=True)
+    print(f"phase 9 (the rest of the tools): "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return rows
 
 

@@ -48,12 +48,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: Launches per kernel wrapper (one per wrapper call that launched its
 #: kernel).  Plain-version calls never count.
 #: Kernel D counts its paired instantiation ("fine_paired") apart from
-#: its run dispatch ("fine"); the four kernels of ``csrc/probes.cu`` (the
-#: tools', ``ops/probes.py``) count one each.
+#: its run dispatch ("fine"); the four kernels of ``csrc/probes.cu`` and
+#: the two of ``csrc/mosaic_probe.cu`` (the tools', ``ops/probes.py``)
+#: count one each.
 LAUNCHES = {"candfuse": 0, "hitfuse": 0, "sort": 0, "fine": 0, "expand": 0,
             "keyed": 0, "gatherm": 0, "fine_dense": 0, "fine_paired": 0,
             "probe_div": 0, "probe_numerics": 0, "probe_halfmix": 0,
-            "probe_delivery": 0}
+            "probe_delivery": 0, "probe_mosaic": 0, "probe_dma16": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -77,6 +78,8 @@ _SIGNATURES = {
     "piet_probe_numerics": [_I] + [_P] * 6 + [_I, _P],
     "piet_probe_halfmix": [_P, _P, _I, _I, _I, _I, _P],
     "piet_probe_delivery": [_P, _P, _I, _I, _I, _P],
+    "piet_probe_mosaic": [_I, _P, _P, _I, _P],
+    "piet_probe_dma16": [_P, _P, _I, _P],
 }
 
 _LIB = None

@@ -10,7 +10,14 @@ Four kernels of ``csrc/probes.cu``, one C entry point each:
 - :func:`probe_halfmix`, the state chain of ``tools/half_experiment.py``
   in f32, bf16 and packed bf16x2 (replaces its ``run``);
 - :func:`probe_delivery`, the nine operand-delivery variants of
-  ``tools/arg_delivery_bench.py`` (replaces its ``run``).
+  ``tools/arg_delivery_bench.py`` (replaces its ``run``);
+
+and two of ``csrc/mosaic_probe.cu``, the access-pattern probes of
+``tools/mosaic_probe.py``:
+
+- :func:`probe_mosaic`, its 22 one-kernel probes (replaces ``_compile``);
+- :func:`probe_dma16`, its async copy of 16-lane rows into scratch
+  (replaces ``_compile_dma16`` and ``_dma16_kernel``).
 
 Dispatch as every kernel of the port (``kernels.on_cuda``): CPU tensors
 run the plain version, CUDA tensors launch the kernel or raise.  The
@@ -27,9 +34,10 @@ from .cmd_math import ieee_sqrt, srgb_encode_u32
 
 F32 = torch.float32
 
-#: The launch counters of the four kernels (``kernels.LAUNCHES``); no
+#: The launch counters of the six kernels (``kernels.LAUNCHES``); no
 #: frame runs them.
-KERNELS = ("probe_div", "probe_numerics", "probe_halfmix", "probe_delivery")
+KERNELS = ("probe_div", "probe_numerics", "probe_halfmix", "probe_delivery",
+           "probe_mosaic", "probe_dma16")
 
 # ---- probe_div -------------------------------------------------------
 
@@ -301,3 +309,200 @@ def delivery_ops(data: torch.Tensor, variant: str, reps: int) -> int:
     else:
         per_rep = n * (px * CHAIN_OPS_PER_PIXEL + CHAIN_OPS_PER_ENTRY)
     return per_rep * reps
+
+
+# ---- probe_mosaic, probe_dma16 ------------------------------------------
+
+#: The tool's one-kernel probes in its order (``mosaic_probe.PROBES``
+#: without dma_16lane; the kernel's ``Probe``), each with the shapes of
+#: its f32 scratch (the tool's ``SCRATCH``; stack_scalars' is SMEM).
+MOSAIC_PROBES = {
+    "lane_slice_computed": (), "lane_slice_ref": (),
+    "lane_slice_ref_dyn": (), "roll_dynamic": (), "sublane_dyn_load": (),
+    "stack_scalars": ((8,),), "transpose_block": ((128, 16),),
+    "bcast_and_reduce": (), "rmw_dyn_row": ((32, 128),),
+    "major_dyn_scratch": ((8, 8, 128),), "pair_rows_bcast": (),
+    "dynsub_statlane": ((128, 16),), "splat11": ((128, 16),),
+    "grouped_sum_reshape": (), "roll_tree_sum": (), "repeat_sub": (),
+    "concat0_41": (), "splat11_chain": ((128, 16),),
+    "splat11_mul": ((128, 16),), "splat11_concat": ((128, 16),),
+    "splat11_repeat": ((128, 16),), "dyn2_read": ((4, 16, 128),),
+}
+#: The probe's input and output (f32), and its grid, run in order.
+MOSAIC_IN, MOSAIC_OUT, MOSAIC_STEPS = (16, 128), (8, 128), 4
+#: Words of scratch that no step has written yet: the Pallas
+#: interpreter's default (a quiet NaN) and its
+#: ``uninitialized_memory="zero"``.
+FILL_NAN = 0x7FC00000
+FILLS = (FILL_NAN, 0)
+#: probe_dma16's scratch, the slot its copies fill, the rows a copy
+#: moves and the rows between two steps' copies; its input must hold the
+#: rows that step 3's copy reaches.
+DMA16_SCRATCH, DMA16_SLOT, DMA16_ROWS, DMA16_STRIDE = (4, 512, 16), 1, 512, 128
+DMA16_MIN_ROWS = (MOSAIC_STEPS - 1) * DMA16_STRIDE + DMA16_ROWS
+#: The CPU's NaN for an invalid op on non-NaN operands.
+_CPU_DEFAULT_NAN = -0x400000  # 0xffc00000 as int32
+
+
+def _word(fill: int) -> int:
+    """A 32-bit word as the signed int the C entry points take."""
+    fill &= 0xFFFFFFFF
+    return fill - (1 << 32) if fill >= 1 << 31 else fill
+
+
+def _filled(shape, fill: int, device) -> torch.Tensor:
+    return torch.full(shape, _word(fill), dtype=torch.int32,
+                      device=device).view(F32)
+
+
+def _quiet(a: torch.Tensor) -> torch.Tensor:
+    return (a.view(torch.int32) | 0x00400000).view(F32)
+
+
+def _cpu_nan(r: torch.Tensor, a, b) -> torch.Tensor:
+    """``r``, the result of an op on ``a`` and ``b``, with the CPU's NaN
+    word: the first NaN operand, quieted (the card's ALU gives the
+    canonical 0x7fffffff instead; csrc/mosaic_probe.cu does the same)."""
+    a = torch.as_tensor(a, dtype=F32, device=r.device).expand_as(r)
+    b = torch.as_tensor(b, dtype=F32, device=r.device).expand_as(r)
+    default = torch.tensor(_CPU_DEFAULT_NAN, dtype=torch.int32,
+                           device=r.device).view(F32)
+    nan = torch.where(a.isnan(), _quiet(a),
+                      torch.where(b.isnan(), _quiet(b), default))
+    return torch.where(r.isnan(), nan, r)
+
+
+def _add(a, b):
+    return _cpu_nan(a + b, a, b)
+
+
+def _mul(a, b):
+    return _cpu_nan(a * b, a, b)
+
+
+def _min(a, b):
+    """jnp.minimum: a NaN operand gives a NaN (its word, quieted)."""
+    return torch.where(a.isnan(), _quiet(a),
+                       torch.where(b.isnan(), _quiet(b), torch.minimum(a, b)))
+
+
+def _splat(col: torch.Tensor) -> torch.Tensor:
+    """``zeros((8, 128)) + col`` of an (8, 1) or (1, 128) operand."""
+    return _add(0.0, col).expand(*MOSAIC_OUT)
+
+
+def _mosaic_step(name: str, i: int, x: torch.Tensor, t) -> torch.Tensor:
+    """Step ``i`` of probe ``name`` on the (16, 128) input ``x`` and its
+    scratch tensors ``t`` (updated in place): the (8, 128) output block
+    the step writes."""
+    v = x[0:8]
+    if name in ("transpose_block", "dynsub_statlane") or (
+            name.startswith("splat11")):
+        t[0].copy_(x.T)
+    if name == "lane_slice_computed":
+        return _splat(_mul(v, 2.0)[:, 3:4])
+    if name == "lane_slice_ref":
+        return _splat(v[:, 3:4])
+    if name == "lane_slice_ref_dyn":
+        return _splat(v[:, i:i + 1])
+    if name == "roll_dynamic":
+        return torch.roll(v, 16 * i, 1)
+    if name == "sublane_dyn_load":
+        return torch.cat([x[i:i + 4]] * 2)
+    if name == "stack_scalars":
+        return _splat(t[0].reshape(8, 1))
+    if name == "transpose_block":
+        return _splat(t[0][0:1, 0:1])
+    if name == "bcast_and_reduce":
+        a = v[:, 0:1]
+        f = _add(_mul(a, x[0:1]), a)
+        red = f[0:1]
+        for r in range(1, 8):
+            red = _min(red, f[r:r + 1])
+        return _splat(red)
+    if name == "rmw_dyn_row":
+        t[0][i:i + 1] = _min(t[0][i:i + 1], x[0:1])
+        return t[0][0:8].clone()
+    if name == "major_dyn_scratch":
+        t[0][0] = v
+        return _splat(t[0][i, :, 2:3])
+    if name in ("pair_rows_bcast", "repeat_sub"):
+        return _splat(x[0:4, 0:1].repeat_interleave(2, 0))
+    if name == "concat0_41":
+        return _splat(torch.cat([x[0:4, 0:1]] * 2))
+    if name == "dynsub_statlane":
+        return _splat(torch.cat([t[0][4 * i:4 * i + 4, 2:3]] * 2))
+    if name in ("splat11", "splat11_chain", "splat11_mul"):
+        a, b = t[0][i:i + 1, 2:3], t[0][i:i + 1, 3:4]
+        if name == "splat11_mul":
+            ones = torch.ones((8, 1), dtype=F32, device=x.device)
+            a, b = _mul(a, ones), _mul(b, ones)
+        return _add(_mul(v, a), b)
+    if name in ("splat11_concat", "splat11_repeat"):
+        return _mul(v, t[0][i:i + 1, 2:3].expand(8, 1))
+    if name == "grouped_sum_reshape":
+        g = v.reshape(2, 4, 128)
+        s = _add(_add(_add(g[:, 0], g[:, 1]), g[:, 2]), g[:, 3])
+        return torch.cat([s] * 4)
+    if name == "roll_tree_sum":
+        s = v
+        for k in (4, 2, 1):
+            s = _add(s, torch.roll(s, k, 0))
+        return s
+    if name == "dyn2_read":
+        t[0][0] = x
+        return _splat(t[0][i, 2 * i:2 * i + 1, 2:3])
+    raise ValueError(f"unknown probe {name!r}")
+
+
+def probe_mosaic_plain(name: str, x: torch.Tensor,
+                       fill: int = FILL_NAN) -> torch.Tensor:
+    t = [_filled(s, fill, x.device) for s in MOSAIC_PROBES[name]]
+    for i in range(MOSAIC_STEPS):
+        out = _mosaic_step(name, i, x, t)
+    return out.contiguous()
+
+
+def probe_mosaic(name: str, x: torch.Tensor,
+                 fill: int = FILL_NAN) -> torch.Tensor:
+    """Probe ``name`` (:data:`MOSAIC_PROBES`) on the (16, 128) f32 input
+    ``x``: its four steps in order over scratch that starts as the 32-bit
+    word ``fill``; returns the (8, 128) f32 output step 3 left."""
+    if name not in MOSAIC_PROBES:
+        raise ValueError(f"unknown probe {name!r}")
+    if not kernels.on_cuda(x):
+        return probe_mosaic_plain(name, x, fill)
+    kernels.check_cuda_tensor(x, F32, "x", MOSAIC_IN)
+    out = torch.empty(MOSAIC_OUT, dtype=F32, device=x.device)
+    kernels.launch("probe_mosaic", "piet_probe_mosaic",
+                   list(MOSAIC_PROBES).index(name), x.data_ptr(),
+                   out.data_ptr(), _word(fill))
+    return out
+
+
+def probe_dma16_plain(x: torch.Tensor, fill: int = FILL_NAN) -> torch.Tensor:
+    t = _filled(DMA16_SCRATCH, fill, x.device)
+    for i in range(MOSAIC_STEPS):
+        r0 = i * DMA16_STRIDE
+        t[DMA16_SLOT] = x[r0:r0 + DMA16_ROWS]
+        out = _splat(t[DMA16_SLOT, i:i + 1, 3:4])
+    return out.contiguous()
+
+
+def probe_dma16(x: torch.Tensor, fill: int = FILL_NAN) -> torch.Tensor:
+    """The dma_16lane probe on ``x`` ((>= 896, 16) f32, 16-byte aligned):
+    at step i, rows 128 i .. 128 i + 511 copied into slot 1 of a (4, 512,
+    16) scratch that starts as ``fill``, then t[1, i, 3] splat into the
+    (8, 128) f32 output; returns what step 3 left."""
+    if x.ndim != 2 or x.shape[1] != 16 or x.shape[0] < DMA16_MIN_ROWS:
+        raise ValueError(f"x shape {tuple(x.shape)}: expected (>= "
+                         f"{DMA16_MIN_ROWS}, 16)")
+    if not kernels.on_cuda(x):
+        return probe_dma16_plain(x, fill)
+    kernels.check_cuda_tensor(x, F32, "x")
+    if x.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned")
+    out = torch.empty(MOSAIC_OUT, dtype=F32, device=x.device)
+    kernels.launch("probe_dma16", "piet_probe_dma16", x.data_ptr(),
+                   out.data_ptr(), _word(fill))
+    return out

@@ -1,11 +1,16 @@
-"""The port's counterparts of the JAX package's ``tools/`` that reach a
-Pallas kernel: the numerics probes (``div_probe``,
-``mosaic_numerics_probe``), the microbenchmarks (``half_experiment``,
-``arg_delivery_bench``) and ``fine_entry_bench`` on kernel D.  Each runs
-on the card as ``python -m piet_tpu_torch.tools.<name>`` and prints the
-lines its JAX tool prints ("mosaic" read as "kernel"); its functions take
-``device=`` ("cpu" in the tests, where the kernels' plain versions run).
-Timing needs the card: there is no CPU fallback.
+"""The port's counterparts of the JAX package's ``tools/``, under the
+same names: the numerics probes (``div_probe``,
+``mosaic_numerics_probe``) and access-pattern probes (``mosaic_probe``),
+the microbenchmarks (``half_experiment``, ``arg_delivery_bench``,
+``fine_entry_bench`` on kernel D, ``dispatch_probe``), and the
+diagnostics that run the frame's kernels (``group_stats``,
+``mesh_balance``, ``engine_probe``, ``eng_bisect_probe``,
+``eng_array_probe`` with ``engines``, ``grad_exact_probe``,
+``grad_tile_probe``, ``precompile_cache``).  Each runs on the card as
+``python -m piet_tpu_torch.tools.<name>`` and prints the lines its JAX
+tool prints ("mosaic" read as "kernel"); its functions take ``device=``
+("cpu" in the tests, where the kernels' plain versions run).  A tool's
+``main`` needs the card: there is no CPU fallback.
 """
 
 from __future__ import annotations

@@ -4,6 +4,7 @@
 Checked in a subprocess: this test process has already imported jax
 (tests/conftest.py) and piet_tpu."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -35,8 +36,8 @@ print(" ".join(names))
 """
 
 #: Modules the port must have beside the kernels' path: the command line
-#: and what it stands on, and the tools (the JAX package's tools/ that
-#: reach a Pallas kernel) with their kernels' module.
+#: and what it stands on, and the tools (the JAX package's tools/) with
+#: their kernels' module.
 REQUIRED = {"piet_tpu_torch.cli", "piet_tpu_torch.__main__",
             "piet_tpu_torch.profiling", "piet_tpu_torch.roofline",
             "piet_tpu_torch.native", "piet_tpu_torch.entry",
@@ -46,7 +47,17 @@ REQUIRED = {"piet_tpu_torch.cli", "piet_tpu_torch.__main__",
             "piet_tpu_torch.tools.mosaic_numerics_probe",
             "piet_tpu_torch.tools.half_experiment",
             "piet_tpu_torch.tools.arg_delivery_bench",
-            "piet_tpu_torch.tools.fine_entry_bench"}
+            "piet_tpu_torch.tools.fine_entry_bench",
+            "piet_tpu_torch.tools.mosaic_probe",
+            "piet_tpu_torch.tools.group_stats",
+            "piet_tpu_torch.tools.mesh_balance",
+            "piet_tpu_torch.tools.engine_probe",
+            "piet_tpu_torch.tools.eng_bisect_probe",
+            "piet_tpu_torch.tools.eng_array_probe",
+            "piet_tpu_torch.tools.grad_exact_probe",
+            "piet_tpu_torch.tools.grad_tile_probe",
+            "piet_tpu_torch.tools.dispatch_probe",
+            "piet_tpu_torch.tools.precompile_cache"}
 
 
 def _run(args, cwd):
@@ -95,3 +106,33 @@ def test_every_jax_module_has_a_counterpart():
     assert modules("piet_tpu") - modules("piet_tpu_torch") == set()
     src = (ROOT / "piet_tpu_torch" / "entry.py").read_text()
     assert "def dryrun_multichip(" in src and "def entry(" in src
+
+
+#: JAX tools without a counterpart yet, each with what it waits for.
+TOOLS_WAITING = {
+    "time_config.py": "the CUDA benchmark (ROADMAP queue 1 item 7): it "
+                      "imports bench._bench_config",
+}
+
+
+def test_every_jax_tool_has_a_counterpart():
+    """Every ``tools/*.py`` has a module of the same name in
+    ``piet_tpu_torch/tools/``, but those named as waiting; and no module
+    there imports jax or piet_tpu, at any depth of its import lines."""
+    jax_tools = {p.name for p in (ROOT / "tools").glob("*.py")}
+    port = ROOT / "piet_tpu_torch" / "tools"
+    ported = {p.name for p in port.glob("*.py")}
+    assert jax_tools - ported == set(TOOLS_WAITING)
+    assert not set(TOOLS_WAITING) & ported
+    for path in port.glob("*.py"):
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module]
+            else:
+                continue
+            for m in mods:
+                assert m.split(".")[0] not in ("jax", "jaxlib",
+                                                "piet_tpu"), (path, m)

@@ -138,10 +138,11 @@ def _c_entry_points(text: str) -> dict:
 def test_every_kernel_has_an_entry_point_and_a_counter():
     """Each .cu source defines C entry points, and one launch counter
     counts them (kernel D's paired instantiation has a second one; the
-    four kernels of probes.cu, the tools', one each); every
+    kernels of probes.cu and mosaic_probe.cu, the tools', one each); every
     entry point's ctypes signature matches its C parameters, the stream
     last."""
-    names = {p.stem for p in kernels.CSRC.glob("*.cu")} - {"probes"}
+    names = {p.stem for p in kernels.CSRC.glob("*.cu")} - {"probes",
+                                                            "mosaic_probe"}
     assert (names | {"fine_paired"} | set(probes.KERNELS)
             == set(kernels.LAUNCHES))
     found = {}
@@ -1244,3 +1245,36 @@ def test_cuda_probe_delivery_equals_plain(variant):
         got = probes.probe_delivery(x, variant, 2)
         assert _same_bits(got, probes.probe_delivery_plain(x, variant, 2))
     assert torch.isfinite(got).all()
+
+
+# ---- the access-pattern probes (csrc/mosaic_probe.cu) ---------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", probes.FILLS)
+def test_cuda_probe_mosaic_equals_plain(fill):
+    """Every probe of the tool at both fills of its unwritten scratch:
+    the kernel, one launch a probe, bitwise its plain version on the card
+    and on the CPU (NaN words included)."""
+    _needs_cuda()
+    from piet_tpu_torch.tools import mosaic_probe
+    kernels.reset_launches()
+    for name in probes.MOSAIC_PROBES:
+        x = torch.from_numpy(mosaic_probe.probe_input(name)).cuda()
+        got = probes.probe_mosaic(name, x, fill)
+        assert _same_bits(got, probes.probe_mosaic_plain(name, x, fill)), name
+        assert _same_bits(got.cpu(),
+                          probes.probe_mosaic_plain(name, x.cpu(), fill)), name
+    assert kernels.LAUNCHES["probe_mosaic"] == len(probes.MOSAIC_PROBES)
+
+
+@pytest.mark.cuda
+def test_cuda_probe_dma16_equals_plain():
+    """The bulk copy into 128 KiB of opted-in shared memory: t[1, 3, 3] of
+    arange(1024 * 16) is 6195; random rows at both fills, bitwise."""
+    _needs_cuda()
+    x = torch.arange(1024 * 16, dtype=torch.float32).reshape(1024, 16).cuda()
+    assert (probes.probe_dma16(x) == 6195.0).all()
+    x = torch.randn(1024, 16).cuda()
+    for fill in probes.FILLS:
+        assert _same_bits(probes.probe_dma16(x, fill),
+                          probes.probe_dma16_plain(x, fill))
