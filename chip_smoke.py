@@ -155,11 +155,25 @@ and exits non-zero:
      plain at both fills, on the card and against the CPU (0 words off),
      engine_probe's leaves and bisect at 0 words off, the gradient demo
      0 pixels off the oracle, and the two probe kernels timed beside
-     their plain versions and their bound by bytes.
+     their plain versions and their bound by bytes;
+  10. the benchmark (``piet_tpu_torch.bench``, the port of the JAX
+     package's root bench.py): its ``main`` in process on the default
+     route and with ``--fine-impl entries``, the launch counters reset
+     before and read after each; its lines printed (the card's, the five
+     BASELINE configs, the headline tiger_4k with bench.py's keys, a
+     roofline, ``vs_baseline`` null), no error line and exit 0; every
+     frame kernel of the route launched, kernel C on its device-memory
+     route at beziers_10k and on its cluster at the rest; each config's
+     frame at bench's own fit (unbucketed) 0 pixels off the numpy oracle
+     (the oracle images of phases 4 and 7 shared by scene_key, after
+     checking on animated_clips that the capacities do not change the
+     oracle's image); then tools/time_config.py's counterpart on
+     tiger_4k.
 
 The line before the last is the kernel table as JSON, each kernel with
 the path whose run gave its launch count (and, under "paths", every path
-read: sort's second is the beziers_10k frame), the sort with its
+read: sort's second is the beziers_10k frame; phase 10's two benchmark
+runs are on every frame kernel that they launch), the sort with its
 device-memory route's times, kernel D's paired instantiation
 ("fine_paired") and expand as pairing's compaction ("expand_pairing")
 with the launches of phase 4e's paired frames, the four probe
@@ -1290,6 +1304,7 @@ def main() -> int:
                 c.n_tiles, c.max_items))
             t0 = time.perf_counter()
             head_gold = cpu_render_scene(head, c)
+            head_key = scene_key(head, c)
             print(f"config headline tiger 19.2x 3840x2160: items "
                   f"{head.n_items} points {head.n_points}; E = {n_pairs} "
                   f"({'cluster' if plan.cluster else 'device-memory'} sort "
@@ -1627,15 +1642,25 @@ def main() -> int:
           flush=True)
 
     # ---- 7. the command line on the card --------------------------------
+    # Oracle images by scene_key, shared by phases 7 and 10: phase 4's
+    # tiger, phase 4d's BASELINE scenes and phase 4g's headline; phase 7
+    # adds its own.
+    oracle_images = {scene_key(scene, cfg): golds[1664, 1664],
+                     head_key: head_gold}
+    oracle_images.update({scene_key(sc, r.config): baseline_gold[name]
+                          for (name, _), (r, sc, _) in baseline.items()})
     cli_paths = phase_cli(card, dev, scene, cfg, golds[1664, 1664],
                           aff_render, aff_ni, aff_np, anim_render, anim_ni,
-                          anim_np, anim_golds)
+                          anim_np, anim_golds, oracle_images)
 
     # ---- 8. the tools ----------------------------------------------------
     tool_table = phase_tools(card, dev)
 
     # ---- 9. the rest of the tools ----------------------------------------
     tool_table.update(phase_diag_tools(card, dev))
+
+    # ---- 10. the benchmark -----------------------------------------------
+    bench_paths = phase_bench(card, oracle_images)
 
     # Each kernel's launches on a path that runs it: the affine tiger's two
     # frames (entries route) for the seven, one dense static tiger frame
@@ -1666,6 +1691,8 @@ def main() -> int:
         paths[name] += runs
     for name, k in tool_table.items():
         paths[name] = [(k["path"], k["launches"])]
+    for name, runs in bench_paths.items():
+        paths[name] += runs
     table.update(tool_table)
     print(json.dumps({"kernels": [
         {"name": name, "route": k["route"], "source": k["source"],
@@ -1735,10 +1762,12 @@ def scene_key(sc, cfg) -> tuple:
 
 
 def phase_cli(card, dev, scene, cfg, tiger_gold, aff_render, aff_ni,
-              aff_np, anim_render, anim_ni, anim_np, anim_golds) -> dict:
+              aff_np, anim_render, anim_ni, anim_np, anim_golds,
+              golds) -> dict:
     """Phase 7: every command of the command line, in process, each image
     held against the numpy oracle bitwise (oracle images of phases 4 and
-    5 shared by key); the profiler's and the roofline's checks; host
+    5 shared by key: ``golds``, scene_key -> image, which this phase
+    adds its own to); the profiler's and the roofline's checks; host
     staging timed.  Returns kernel -> [(command, launches)]."""
     import argparse
     import shutil
@@ -1767,7 +1796,6 @@ def phase_cli(card, dev, scene, cfg, tiger_gold, aff_render, aff_ni,
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
     paths: dict = {}
-    golds = {}
     for (tag, t), g in anim_golds.items():
         render_t, ni, npts = ((aff_render, aff_ni, aff_np) if "affine" in tag
                               else (anim_render, anim_ni, anim_np))
@@ -2276,6 +2304,147 @@ def phase_diag_tools(card, dev) -> dict:
     print(f"phase 9 (the rest of the tools): "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return rows
+
+
+#: Phase 10's runs of the benchmark: its arguments, the route's frame
+#: kernels (each must launch) and the kernels it must not launch (static
+#: scenes stage their segments: no expand).
+BENCH_RUNS = (([], DENSE_KERNELS, ("fine", "expand", "fine_paired")),
+              (["--fine-impl", "entries"], ENTRIES_KERNELS,
+               ("fine_dense", "expand", "fine_paired")))
+
+
+def jax_bench_keys() -> set:
+    """The keys of the JAX package's root bench.py headline line (its
+    ``out`` dict literal, read with ast; the script is not imported)."""
+    import ast
+    tree = ast.parse(open("bench.py").read())
+    return next({ast.literal_eval(k) for k in node.value.keys}
+                for node in ast.walk(tree)
+                if isinstance(node, ast.Assign)
+                and getattr(node.targets[0], "id", None) == "out"
+                and isinstance(node.value, ast.Dict))
+
+
+def phase_bench(card, golds) -> dict:
+    """Phase 10: the benchmark as a user runs it, ``python -m
+    piet_tpu_torch.bench`` (``bench.main``, in process) on the default
+    route and with ``--fine-impl entries``, the launch counters reset
+    before and read after each: its lines (the card's, five configs, the
+    headline with the JAX script's keys and a roofline), no error line,
+    exit 0; every frame kernel of the route launched, and kernel C's
+    device-memory route at beziers_10k; every config's frame at bench's
+    fit 0 pixels off the numpy oracle (``golds``, scene_key -> image,
+    shared with phases 4 and 7: the oracle image does not depend on the
+    capacities where none drops a command, which is checked first on
+    animated_clips); then tools/time_config.py's main on tiger_4k.
+    Returns kernel -> [(run, launches)]."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from piet_tpu_torch import bench, kernels
+    from piet_tpu_torch.host import (RenderConfig, cpu_render_scene,
+                                     fit_capacities)
+    from piet_tpu_torch.ops import coarse, sort
+    from piet_tpu_torch.tools import time_config
+
+    t_phase = time.perf_counter()
+    keys = jax_bench_keys() | {"roofline"}
+    names = [n for n, _, _, _ in bench.CONFIGS]
+    paths: dict = {}
+
+    def run(fn, argv, record=None):
+        buf = io.StringIO()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = (fn(argv) if record is None else fn(argv, record=record))
+        torch.cuda.synchronize()
+        lines = buf.getvalue().splitlines()
+        print("\n".join(lines), flush=True)
+        return rc, lines, dict(kernels.LAUNCHES), time.perf_counter() - t0
+
+    claim_checked = False
+    for argv, must, absent in BENCH_RUNS:
+        cmd = " ".join(["python -m piet_tpu_torch.bench"] + argv)
+        rec = {}
+        rc, lines, launches, secs = run(bench.main, argv, rec)
+        print(f"bench {cmd}: exit {rc}, {secs:.1f} s; launches {launches}",
+              flush=True)
+        assert rc == 0 and lines[0] == card, (cmd, rc, lines[:1])
+        rows = [json.loads(ln) for ln in lines[1:]]
+        assert not any("error" in r for r in rows), (cmd, rows)
+        head = rows[-1]
+        assert [r["config"] for r in rows[:-1]] == names, rows
+        assert set(head) == keys, sorted(set(head) ^ keys)
+        assert head["backend"] == "cuda" and head["vs_baseline"] is None
+        assert head["metric"] == "tiger_4k_ms_per_frame", head
+        assert "error" not in head["roofline"], head["roofline"]
+        for stage, d in head["roofline"].items():
+            assert d["measured_ms"] > 0 and d["pct_of_roofline"] <= 100, (
+                stage, d)
+        assert all(launches[k] > 0 for k in must), (cmd, launches)
+        assert all(launches[k] == 0 for k in absent), (cmd, launches)
+        for k, n in launches.items():
+            if n:
+                paths.setdefault(k, []).append(
+                    (f"phase 10 (the benchmark): {cmd}, 6 configs", n))
+
+        if not claim_checked:
+            # The claim behind shared oracle images, on the cheapest
+            # config: its oracle at bench's fit equals the one stored
+            # under its scene_key (phase 7's, bucketed capacities).
+            r = rec["animated_clips"]
+            c = r["config"]
+            key = scene_key(r["scene"], c)
+            if key not in golds:  # phase 7 not run: for_scene's buckets
+                golds[key] = cpu_render_scene(r["scene"], fit_capacities(
+                    r["scene"], RenderConfig(width=c.width, height=c.height),
+                    bucket=True))
+            same = np.array_equal(golds[key],
+                                  cpu_render_scene(r["scene"], c))
+            print(f"bench oracle claim: animated_clips' oracle at bench's "
+                  f"fit (cmd_capacity {c.cmd_capacity}) equal to the image "
+                  f"stored under its scene_key (bucketed capacities): "
+                  f"{same}", flush=True)
+            assert same
+            claim_checked = True
+        for name, r in rec.items():
+            c = r["config"]
+            key = scene_key(r["scene"], c)
+            reused = key in golds
+            if not reused:
+                golds[key] = cpu_render_scene(r["scene"], c)
+            n_bad = int((r["image"] != golds[key]).any(-1).sum())
+            n_pairs = c.max_hits + c.max_candidates
+            plan = sort.sort_plan(n_pairs, coarse.sort_key_bounds(
+                c.n_tiles, c.max_items))
+            print(f"bench {cmd} {name} {c.width}x{c.height}: {n_bad} pixels "
+                  f"differ from the numpy oracle ("
+                  f"{'shared' if reused else 'rendered here'}); E = "
+                  f"{n_pairs} ({'cluster' if plan.cluster else 'device-memory'}"
+                  f" sort route), cmd_capacity {c.cmd_capacity}; launches "
+                  f"{ {k: n for k, n in r['launches'].items() if n} }",
+                  flush=True)
+            assert n_bad == 0, f"bench {cmd} {name} differs from the oracle"
+            assert r["launches"]["sort"] > 0, (name, r["launches"])
+            # beziers_10k alone sorts on the device-memory route.
+            assert (plan.cluster == 0) == (name == "beziers_10k"), (name,
+                                                                    plan)
+
+    rc, lines, launches, secs = run(time_config.main, ["tiger_4k"])
+    out = json.loads(lines[-1])
+    print(f"tool time_config tiger_4k: exit {rc}, {secs:.1f} s; launches "
+          f"{launches}", flush=True)
+    assert rc == 0 and lines[0] == card
+    assert set(out) == {"config", "ms_per_frame", "viewport", "env"}, out
+    assert out["ms_per_frame"] > 0 and out["viewport"] == "3840x2160"
+    assert all(launches[k] > 0 for k in DENSE_KERNELS), launches
+    print(f"phase 10 (the benchmark): {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return paths
 
 
 def plain_cand_stage(scene, cap, kw):

@@ -6,11 +6,13 @@ the microbenchmarks (``half_experiment``, ``arg_delivery_bench``,
 diagnostics that run the frame's kernels (``group_stats``,
 ``mesh_balance``, ``engine_probe``, ``eng_bisect_probe``,
 ``eng_array_probe`` with ``engines``, ``grad_exact_probe``,
-``grad_tile_probe``, ``precompile_cache``).  Each runs on the card as
+``grad_tile_probe``, ``precompile_cache``), and ``time_config`` (one
+config of ``piet_tpu_torch.bench``).  Each runs on the card as
 ``python -m piet_tpu_torch.tools.<name>`` and prints the lines its JAX
 tool prints ("mosaic" read as "kernel"); its functions take ``device=``
 ("cpu" in the tests, where the kernels' plain versions run).  A tool's
-``main`` needs the card: there is no CPU fallback.
+``main`` needs the card: there is no CPU fallback (``time_config``
+takes ``--cpu`` as the benchmark does).
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
 """The port imports torch and never jax, and nothing of the JAX package
-``piet_tpu`` (not even its numpy modules: the port keeps its own copies).
+``piet_tpu`` (not even its numpy modules: the port keeps its own copies)
+nor the JAX package's root ``bench.py``.
 
 Checked in a subprocess: this test process has already imported jax
 (tests/conftest.py) and piet_tpu."""
@@ -30,7 +31,7 @@ for node in ast.walk(tree):
         exec(compile(ast.Module(body=[node], type_ignores=[]),
                      "chip_smoke.py", "exec"), {})
 leaked = sorted(k for k in sys.modules
-                if k.split(".")[0] in ("jax", "jaxlib", "piet_tpu"))
+                if k.split(".")[0] in ("jax", "jaxlib", "piet_tpu", "bench"))
 assert not leaked, leaked
 print(" ".join(names))
 """
@@ -57,7 +58,12 @@ REQUIRED = {"piet_tpu_torch.cli", "piet_tpu_torch.__main__",
             "piet_tpu_torch.tools.grad_exact_probe",
             "piet_tpu_torch.tools.grad_tile_probe",
             "piet_tpu_torch.tools.dispatch_probe",
-            "piet_tpu_torch.tools.precompile_cache"}
+            "piet_tpu_torch.tools.precompile_cache",
+            "piet_tpu_torch.tools.time_config", "piet_tpu_torch.bench"}
+
+#: What no source of the port imports: jax, the JAX package, and the JAX
+#: package's root benchmark script.
+FORBIDDEN = ("jax", "jaxlib", "piet_tpu", "bench")
 
 
 def _run(args, cwd):
@@ -74,15 +80,18 @@ def test_port_and_all_its_modules_import_without_jax():
 
 
 def test_port_sources_never_import_jax():
-    """Nor piet_tpu: no import line names either package."""
-    for path in list((ROOT / "piet_tpu_torch").rglob("*.py")) + [
-            ROOT / "chip_smoke.py", ROOT / "ab_kernels.py"]:
+    """Nor piet_tpu, nor the root bench.py: no import line names them
+    (the port's bench.py and tools/time_config.py among the sources)."""
+    sources = list((ROOT / "piet_tpu_torch").rglob("*.py"))
+    assert {ROOT / "piet_tpu_torch" / "bench.py",
+            ROOT / "piet_tpu_torch" / "tools" / "time_config.py"} <= set(
+                sources)
+    for path in sources + [ROOT / "chip_smoke.py", ROOT / "ab_kernels.py"]:
         for line in path.read_text().splitlines():
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
                 mod = words[1].split(".")[0]
-                assert mod not in ("jax", "jaxlib", "piet_tpu"), \
-                    f"{path}: {line}"
+                assert mod not in FORBIDDEN, f"{path}: {line}"
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
@@ -109,10 +118,22 @@ def test_every_jax_module_has_a_counterpart():
 
 
 #: JAX tools without a counterpart yet, each with what it waits for.
-TOOLS_WAITING = {
-    "time_config.py": "the CUDA benchmark (ROADMAP queue 1 item 7): it "
-                      "imports bench._bench_config",
-}
+TOOLS_WAITING = {}
+
+
+def test_root_bench_has_its_counterpart():
+    """The JAX package's root bench.py has the port's piet_tpu_torch/
+    bench.py, with the JAX script's entry points under the same names
+    (its ``_time_renderer``, ``_bench_config``, ``_roofline_split``
+    without the underscore)."""
+    jax_names = {n.name for n in ast.parse(
+        (ROOT / "bench.py").read_text()).body
+        if isinstance(n, ast.FunctionDef)}
+    port = ROOT / "piet_tpu_torch" / "bench.py"
+    assert port.is_file()
+    port_names = {n.name for n in ast.parse(port.read_text()).body
+                  if isinstance(n, ast.FunctionDef)}
+    assert {n.lstrip("_") for n in jax_names} <= port_names
 
 
 def test_every_jax_tool_has_a_counterpart():
@@ -134,5 +155,4 @@ def test_every_jax_tool_has_a_counterpart():
             else:
                 continue
             for m in mods:
-                assert m.split(".")[0] not in ("jax", "jaxlib",
-                                                "piet_tpu"), (path, m)
+                assert m.split(".")[0] not in FORBIDDEN, (path, m)
