@@ -9,7 +9,9 @@ and exits non-zero:
   1. the card's name and power limit (nvidia-smi's line, as it prints
      it), torch and CUDA versions;
   2. build the kernels from csrc/ with nvcc, one process per source
-     (timed);
+     (timed); the registers and stack bytes of kernel D's four
+     instantiations and fine_dense's four (cuobjdump's resource usage of
+     the built library);
   3. every kernel against its plain PyTorch version on the same inputs,
      bitwise (tolerance 0): candfuse -- the item rows from the scene
      (cand_inputs) on the static 1664^2 tiger, the affine tiger and
@@ -32,8 +34,13 @@ and exits non-zero:
      (both of the coarse pass's sums in one call, read in place, and each
      sum through the one-stream keyed_sum); kernel D's paired
      instantiation on the tiger's and beziers_10k's compact and hole
-     streams; expand as pairing's compaction on both compact streams
-     (against the scatter and gather); fine_dense on the static
+     streams, and both instantiations on the synthetic streams of
+     raster/synth_entries.py (two seeds, 128- and 16-pixel tiles), whose
+     images must also equal the numpy oracle; pairing's compaction
+     (expand.cu's piet_compact_rows) on both compact passes and its edge
+     cases (all, none, the last or the first row kept, ragged blocks, one
+     row, random keeps at 368,640 rows), rows and total, against the
+     scatter and gather; fine_dense on the static
      tiger's dense PTCL in both instantiations (fine_rasterize and
      fine_rasterize_xla), in the group
      one on the three fixtures, in both on the tiger's at 16x16 tiles and
@@ -63,9 +70,12 @@ and exits non-zero:
   4e. entry pairing (ops/pairing.py) on the entries route, off, compact
      and hole, at the tiger 1664^2 and beziers_10k 1024^2: each frame
      bitwise against the oracle, the graphed frame against the eager
-     one, kernel D's paired instantiation launched once a frame and
-     expand once a compact frame; live entries, kernel D (paired against
-     run dispatch) and the graphed frame timed;
+     one, kernel D's paired instantiation launched once a frame and the
+     compaction ("expand_pairing") once a compact frame, expand never;
+     live entries, kernel D (run dispatch on "off", paired on the others,
+     three times each), the compaction eager and replayed from a graph,
+     both fine_dense instantiations on the scene's dense PTCL and the
+     graphed frame timed (``timing pairing kernels`` lines);
   4f. row slabs (parallel/sharding.py): the tiger at 1664^2 over 4
      contiguous slabs and over 2 slabs of 2 interleaved blocks, all on
      this card (each mesh's slabs one CUDA graph), both routes, bitwise
@@ -175,8 +185,8 @@ the path whose run gave its launch count (and, under "paths", every path
 read: sort's second is the beziers_10k frame; phase 10's two benchmark
 runs are on every frame kernel that they launch), the sort with its
 device-memory route's times, kernel D's paired instantiation
-("fine_paired") and expand as pairing's compaction ("expand_pairing")
-with the launches of phase 4e's paired frames, the four probe
+("fine_paired") and pairing's compaction ("expand_pairing") with the
+launches of phase 4e's paired frames, the four probe
 kernels with phase 8's and the two access-pattern probe kernels with
 phase 9's; the last line is
 {"ok": true,
@@ -325,8 +335,9 @@ HOST_CALL = re.compile(r"^cu(da)?(LaunchKernel|LaunchCooperativeKernel|"
 OUR_KERNELS = ("cand_count", "cand_prep", "cand_expand", "hitfuse_kernel",
                "sort_cluster", "sort_upsweep", "sort_pass",
                "fine_entries_kernel", "tile_order", "fine_dense_kernel",
-               "expand_kernel", "keyed_kernel", "gather_endpoints",
-               "gather_rows", "backdrop", "Memset")
+               "expand_kernel", "compact_count", "compact_rows",
+               "keyed_kernel", "gather_endpoints", "gather_rows",
+               "backdrop", "Memset")
 
 
 def kernel_name(name: str) -> str:
@@ -614,6 +625,7 @@ def main() -> int:
     from piet_tpu_torch.host import cpu_render_scene, make_tiger
     from piet_tpu_torch.ops import (candfuse, coarse, expand, fine, fine_xla,
                                     gatherm, hitfuse, keyed, pairing, sort)
+    from piet_tpu_torch.raster.synth_entries import synth_entry_streams
     from piet_tpu_torch.raster.synth_ptcl import synth_dense_ptcl
     from piet_tpu_torch.renderer.renderer import (Renderer,
                                                   _solid_to_present_u32,
@@ -621,6 +633,7 @@ def main() -> int:
     # The H100's peaks and the least-time bound (roofline.py).
     from piet_tpu_torch.roofline import bound
     from piet_tpu_torch.scene import fixtures
+    from piet_tpu_torch.tools.pairing_ab import fine_resources
 
     # ---- 2. build ------------------------------------------------------
     t0 = time.perf_counter()
@@ -628,6 +641,15 @@ def main() -> int:
     kernels.library()
     print(f"build: {time.perf_counter() - t0:.1f} s -> "
           f"{lib.relative_to(kernels.BUILD_DIR.parent.parent)}", flush=True)
+    # Registers and stack (local memory) bytes of kernel D's four
+    # instantiations (paired or not, 8 or 4 pixels a thread) and
+    # fine_dense's four (groups or not, 8 or 4), from the built library.
+    fine_res = fine_resources(kernels.resource_usage(lib))
+    for name, r in fine_res.items():
+        print(f"resources {name}: registers {r['REG']}, stack "
+              f"{r['STACK']} B, local {r.get('LOCAL', 0)} B, shared "
+              f"{r['SHARED']} B", flush=True)
+    assert len(fine_res) == 8, sorted(fine_res)
 
     dev = torch.device("cuda")
     scene = make_tiger()
@@ -760,6 +782,36 @@ def main() -> int:
             if mode == "compact":
                 bundle, keep = pt["pairing"]
                 pair_bundles.append((bundle, keep))
+    # The synthetic streams of raster/synth_entries.py (streaks across the
+    # chunk boundary, holes, the state copy at a begin clip): the paired
+    # ones for the paired instantiation, the unpaired one for run
+    # dispatch; each image also against the numpy oracle (below).
+    synth_cases = []
+    for seed, stw in ((0, 128), (1, 16)):
+        syn = synth_entry_streams(seed, tile_w=stw)
+        for mode, st in syn.streams.items():
+            case = (f"synthetic seed {seed} {stw}x{syn.tile_h} {mode}",
+                    tuple(torch.from_numpy(x).to(dev) for x in (
+                        st.first, st.n_entries, np.zeros_like(st.first),
+                        st.stream)),
+                    dict(tile_h=syn.tile_h, tile_w=stw, tiles_x=syn.tiles_x,
+                         paired=mode != "off"))
+            synth_cases.append(case + (syn.oracle,))
+            (fine_cases if mode == "off" else pair_cases).append(case)
+    # The compaction's edge cases: all, none, only the last or the first
+    # row kept, E past a multiple of its 512-row block, one row, and
+    # random keeps at beziers_10k's E.
+    cgen = torch.Generator(device=dev).manual_seed(15)
+    for case, n in (("all", 1100), ("none", 1100), ("last", 1100),
+                    ("first", 513), ("random", 1), ("random", 1537),
+                    ("random", 368_640)):
+        b = torch.randint(-2 ** 31, 2 ** 31 - 1, (n, pairing.ROW_WORDS),
+                          generator=cgen, device=dev, dtype=torch.int32)
+        i = torch.arange(n, device=dev)
+        k = {"all": i >= 0, "none": i < 0, "last": i == n - 1,
+             "first": i == 0}.get(
+            case, torch.rand(n, generator=cgen, device=dev) < 0.35)
+        pair_bundles.append((b, k))
     gen = torch.Generator(device=dev).manual_seed(4)
 
     def random_case(n, n_keys):
@@ -853,13 +905,14 @@ def main() -> int:
     pair_fine_bytes = (nbytes(*pf_args[:3])
                        + row_bytes(int(pf_args[1].sum()), pf_args[3])
                        + img_bytes)
-    # The compaction on the tiger's compact pass: the keep counts read,
-    # each kept row read once, every output row written.
+    # The compaction on the tiger's compact pass: the keep mask read (a
+    # byte a row), each kept row read once, every output row and the total
+    # written.
     pb, pk = pair_bundles[0]
     pk_i = pk.to(torch.int32)
     pk_n = int(pk.sum())
-    pair_exp_bytes = (nbytes(pk_i) + pk_n * pb.shape[1] * 4
-                      + pb.shape[0] * pb.shape[1] * 4)
+    pair_exp_bytes = (nbytes(pk) + pk_n * pb.shape[1] * 4
+                      + pb.shape[0] * pb.shape[1] * 4 + 4)
 
     table = {
         "candfuse": dict(
@@ -921,9 +974,9 @@ def main() -> int:
             library=None,
             bytes=fine_bytes,
             ops=fine_cmds * tile_px * FINE_OPS_PER_PIXEL_CMD),
-        # The paired instantiation on the four paired streams; timed on
-        # the tiger's compact stream (the "fine" row's is its unpaired
-        # stream, on the run dispatch).
+        # The paired instantiation on the four paired streams and the
+        # synthetic ones; timed on the tiger's compact stream (the "fine"
+        # row's is its unpaired stream, on the run dispatch).
         "fine_paired": dict(
             route="cuda", source="piet_tpu_torch/csrc/fine.cu",
             replaces="piet_tpu/ops/fine.py:245",
@@ -937,15 +990,16 @@ def main() -> int:
             library=None,
             bytes=pair_fine_bytes,
             ops=fine_cmds * tile_px * FINE_OPS_PER_PIXEL_CMD),
-        # Pairing's compaction: the expand kernel with 0/1 counts, against
-        # the pairing's plain version (the scatter and gather).
+        # Pairing's compaction (piet_compact_rows, its own two launches),
+        # against the pairing's plain version (the scatter and gather), on
+        # both compact passes' bundles and the edge cases; rows and total.
         "expand_pairing": dict(
             route="cuda", source="piet_tpu_torch/csrc/expand.cu",
             replaces="piet_tpu/ops/expand.py:81",
-            run=lambda: tuple(pairing.compact_rows(b, k)
-                              for b, k in pair_bundles),
-            plain=lambda: tuple(pairing.compact_rows_plain(b, k)
-                                for b, k in pair_bundles),
+            run=lambda: sum((pairing.compact_rows(b, k)
+                             for b, k in pair_bundles), ()),
+            plain=lambda: sum((pairing.compact_rows_plain(b, k)
+                               for b, k in pair_bundles), ()),
             time=lambda: (pairing.compact_rows(pb, pk),),
             time_plain=lambda: (pairing.compact_rows_plain(pb, pk),),
             library=lambda: F.pad(torch.repeat_interleave(
@@ -1032,6 +1086,16 @@ def main() -> int:
         print(f"kernel {name}: {n_bad} mismatching words vs plain "
               f"(tolerance 0), max abs err {err}", flush=True)
         assert n_bad == 0, f"kernel {name} disagrees with its plain version"
+    # Kernel D on the synthetic streams against the numpy oracle of their
+    # command lists (against its plain version in the table above).
+    for name, a, k, oracle in synth_cases:
+        img = fine.fine_rasterize_entries(*a, **k)
+        got = img.cpu().numpy().view(np.uint8).reshape(oracle.shape)
+        n_bad = int((got != oracle).any(-1).sum())
+        print(f"kernel {'fine_paired' if k['paired'] else 'fine'} {name}: "
+              f"{n_bad} pixels differ from the numpy oracle; entries "
+              f"{a[1].tolist()}", flush=True)
+        assert n_bad == 0, name
     streams = [(n, tuple(r.shape), len(i), i[0].shape[0])
                for (n, _), (r, i) in zip(gather_calls, gather_streams)]
     print(f"engine calls per frame on the affine tiger: expand 1 "
@@ -1062,8 +1126,8 @@ def main() -> int:
         # the entries route runs no dense interpreter.
         assert launches["expand"] == launches["fine_dense"] == 0, launches
         assert all(v > 0 for k, v in frame_counts(launches).items()
-                   if k not in ("expand", "fine_dense", "fine_paired")), \
-            launches
+                   if k not in ("expand", "fine_dense", "fine_paired",
+                                "expand_pairing")), launches
         assert launches["keyed"] == 1, launches
         # Kernel A one call (rows and expansion), gatherm one (backdrop).
         assert launches["candfuse"] == launches["gatherm"] == 1, launches
@@ -1089,7 +1153,8 @@ def main() -> int:
         assert launches["fine_dense"] > 0 and launches["fine"] == 0, launches
         assert launches["expand"] == 0, launches
         assert all(v > 0 for k, v in frame_counts(launches).items()
-                   if k not in ("expand", "fine", "fine_paired")), launches
+                   if k not in ("expand", "fine", "fine_paired",
+                                "expand_pairing")), launches
     for name, gr in group_renderers.items():
         sc = group_scenes[name]
         kernels.reset_launches()
@@ -1117,7 +1182,7 @@ def main() -> int:
           f"{int(stats['overflow_cmds'])}", flush=True)
     assert n_bad == 0 and int(stats["overflow_cmds"]) == 0
     assert all(v > 0 for k, v in frame_counts(kernels.LAUNCHES).items()
-               if k not in ("fine", "fine_paired"))
+               if k not in ("fine", "fine_paired", "expand_pairing"))
     # The renderer's other entry points on host-built animated frames.
     from piet_tpu_torch.scene.fixtures import make_animated_frame
     frames = [make_animated_frame(t) for t in T_FRAMES]
@@ -1194,6 +1259,9 @@ def main() -> int:
             ("tiger 1664x1664", scene, cfg, golds[1664, 1664]),
             ("beziers_10k 1024x1024", bez, bez_r.config,
              baseline_gold["beziers_10k"])):
+        # The pairing path's kernels beside run dispatch and the dense
+        # route's interpreter on the same scene (printed after the modes).
+        pt_ms = {}
         for mode in ("off", "compact", "hole"):
             # The mode is read from PIET_PAIR when the renderer is built.
             os.environ["PIET_PAIR"] = mode
@@ -1209,22 +1277,55 @@ def main() -> int:
                   f"the numpy oracle; live entries {live}; launches "
                   f"{launches}", flush=True)
             assert n_bad == 0, f"pairing {mode} {tag} differs"
-            # Kernel D's paired instantiation counts as "fine_paired".
+            # Kernel D's paired instantiation counts as "fine_paired", the
+            # compaction as "expand_pairing" (a static frame expands no
+            # segments).
             assert launches["fine"] == (mode == "off"), launches
             assert launches["fine_paired"] == (mode != "off"), launches
-            assert launches["expand"] == (mode == "compact"), launches
+            assert launches["expand_pairing"] == (mode == "compact"), \
+                launches
+            assert launches["expand"] == 0, launches
             graph_check(f"pairing {mode} {tag}", rgba(r.render_u32(sc)),
                         rgba(r.render_device(r.prepare(sc))[0]), gold)
-            ce = coarse.coarse_rasterize(r.prepare(sc), pair=mode,
+            pt = {}
+            ce = coarse.coarse_rasterize(r.prepare(sc), pair=mode, taps=pt,
                                          **coarse_kw(c))
             fa = (ce.first, ce.n_entries, _solid_to_present_u32(ce.solid),
                   ce.stream)
             fk = dict(tile_h=c.tile_height, tile_w=c.tile_width,
                       tiles_x=c.tiles_x, paired=mode != "off")
-            t_fine = time_ms(lambda: fine.fine_rasterize_entries(*fa, **fk),
-                             reps=20, warm=2)
+            if mode == "off":
+                # Kernel D's least time on this frame: its commands' f32
+                # operations, as phase 6 bounds it on the tiger.
+                b, by = bound(
+                    nbytes(*fa[:3]) + row_bytes(int(ce.n_entries.sum()),
+                                                ce.stream)
+                    + c.tiles_x * c.tiles_y * c.tile_width * c.tile_height
+                    * 4, int(ce.counts.sum()) * c.tile_width
+                    * c.tile_height * FINE_OPS_PER_PIXEL_CMD)
+                pt_ms[f"kernel D bound ({by})"] = b
+            # Three runs, for the spread of kernel D's time.
+            pt_ms[f"kernel D {mode}"] = [
+                time_ms(lambda: fine.fine_rasterize_entries(*fa, **fk),
+                        reps=20, warm=2) for _ in range(3)]
+            t_fine = statistics.fmean(pt_ms[f"kernel D {mode}"])
+            if mode == "compact":
+                cb, ck = pt["pairing"]
+
+                def compaction():
+                    return pairing.compact_rows(cb, ck)
+                pt_ms["compaction eager"] = time_ms(compaction, reps=20,
+                                                    warm=2)
+                pt_ms["compaction in a graph"] = time_ms(
+                    replay_of(compaction), reps=20, warm=2)
+                # Its least bytes: the keep mask, each kept row read once,
+                # every output row and the total written.
+                pt_ms["compaction bound (bytes)"] = bound(
+                    nbytes(ck) + int(ck.sum()) * cb.shape[1] * 4
+                    + nbytes(cb) + 4)[0]
             staged_in = r._staged
             t_lat = frame_ms(lambda: r._render.flat(staged_in), reps=20)
+            pt_ms[f"graphed frame {mode}"] = t_lat
             t_dev = time_ms(lambda: r._render.flat(staged_in), reps=10,
                             warm=2, spin=8 * SPIN_CYCLES)
             how = ("paired instantiation" if mode != "off"
@@ -1238,6 +1339,19 @@ def main() -> int:
                 graph_cell(card, f"pairing {mode} {tag}",
                            lambda: r.render_device(d_e),
                            lambda: r._render.flat(staged_in))
+        d = dense_inputs(r.prepare(sc), c)
+        pt_ms["fine_dense non-group"] = time_ms(
+            lambda: fine.fine_rasterize(*d[:3], **d[3]), reps=20, warm=2)
+        pt_ms["fine_dense group"] = time_ms(
+            lambda: fine_xla.fine_rasterize_xla(*d[:3], **d[3]), reps=20,
+            warm=2)
+        print(f"timing pairing kernels {tag} [{card}]: " + "; ".join(
+            f"{k} " + (" / ".join(f"{x:.4f}" for x in v)
+                       if isinstance(v, list) else
+                       f"{v:.{5 if 'bound' in k else 4}f}") + " ms"
+            for k, v in pt_ms.items()) + " (kernels: mean of 20 "
+            "back-to-back calls behind a spin, kernel D three times; "
+            "frames: median of 20 graphed frames)", flush=True)
     print(f"phase 4e (pairing): {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
@@ -1368,7 +1482,8 @@ def main() -> int:
               flush=True)
         assert launches["fine_dense"] == 0, launches
         assert all(v > 0 for k, v in frame_counts(launches).items()
-                   if k not in ("fine_dense", "fine_paired")), launches
+                   if k not in ("fine_dense", "fine_paired",
+                                "expand_pairing")), launches
         # Per frame: kernel A one call, gatherm two (endpoints, backdrop).
         assert launches["candfuse"] == len(T_FRAMES), launches
         assert launches["gatherm"] == 2 * len(T_FRAMES), launches
@@ -1671,7 +1786,7 @@ def main() -> int:
                      anim_launches["affine tiger 1664x1664"][name])]
              for name in table if name in kernels.LAUNCHES}
     # The paired instantiation and the compaction: phase 4e's paired
-    # frames (a static frame launches expand only to compact).
+    # frames.
     paths["fine_paired"] = [
         (f"{tag}, 1 frame, entries route, pairing {mode}",
          pair_launches[tag, mode]["fine_paired"])
@@ -1679,7 +1794,7 @@ def main() -> int:
         for mode in ("compact", "hole")]
     paths["expand_pairing"] = [
         (f"{tag}, 1 frame, entries route, pairing compact",
-         pair_launches[tag, "compact"]["expand"])
+         pair_launches[tag, "compact"]["expand_pairing"])
         for tag in ("tiger 1664x1664", "beziers_10k 1024x1024")]
     paths["fine_dense"] = [("static tiger 1664x1664, 1 frame, dense route",
                             dense_launches[1664, 1664]["fine_dense"])]
@@ -2309,9 +2424,10 @@ def phase_diag_tools(card, dev) -> dict:
 #: Phase 10's runs of the benchmark: its arguments, the route's frame
 #: kernels (each must launch) and the kernels it must not launch (static
 #: scenes stage their segments: no expand).
-BENCH_RUNS = (([], DENSE_KERNELS, ("fine", "expand", "fine_paired")),
+BENCH_RUNS = (([], DENSE_KERNELS, ("fine", "expand", "fine_paired",
+                                   "expand_pairing")),
               (["--fine-impl", "entries"], ENTRIES_KERNELS,
-               ("fine_dense", "expand", "fine_paired")))
+               ("fine_dense", "expand", "fine_paired", "expand_pairing")))
 
 
 def jax_bench_keys() -> set:

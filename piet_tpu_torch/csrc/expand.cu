@@ -31,6 +31,27 @@
 //   no search and no row read.
 // - The live total is read here, so the wrapper makes no device op of its
 //   own: one launch per call.
+//
+// Pairing's compaction (piet_compact_rows; the TPU package ran it through
+// the same _expand_kernel with 0/1 counts): the kept rows of an (E, 20)
+// int32 bundle, in order, then all-zero rows.  A compaction needs no
+// owner search: a kept row's slot is its rank among the kept rows.  Bound
+// by bytes (each kept row read once, every output row written once:
+// 1.8 + 5.4 MB at the tiger's 22,768 of 67,584 rows), and at that size
+// by its latency.  Two launches, no op between them:
+//
+// - compact_count: each block of 512 rows counts its kept rows
+//   (__syncthreads_count) into the scratch, and lets the second launch
+//   start at once (programmatic dependent launch).
+// - compact_rows: each block ranks its kept rows by a block scan of the
+//   keep flags, listing them in shared memory by rank, while the counts
+//   land; then waits for them, adds up the blocks before its own (at
+//   most a few hundred words from L2), and copies each kept row to its
+//   slot as five 16-byte loads and stores, neighbouring threads on
+//   neighbouring words.  Its dead rows are zeros at the top of the
+//   output: block b's dead_b slots end where the dead rows of the blocks
+//   before it begin, at E - (dead rows before b), so no block waits for
+//   the live total.  The last block writes the total after the counts.
 #include "cmd_math.cuh"
 #include "owner_search.cuh"
 
@@ -105,6 +126,94 @@ expand_kernel(const int* __restrict__ rows, const int* __restrict__ counts,
   }
 }
 
+constexpr int CROWS = 512;     // compaction: rows per block
+constexpr int CTHREADS = 256;  // threads per block, 2 rows each
+constexpr int ROW_VEC = 5;     // 16-byte words per row (20 int32)
+
+// Programmatic dependent launch (Hopper), as in sort.cu.
+__device__ __forceinline__ void wait_prior() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+__device__ __forceinline__ void let_next_start() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+// Block b's kept rows into kept[b].
+__global__ void __launch_bounds__(CTHREADS)
+compact_count(const unsigned char* __restrict__ keep, int n_rows,
+              int* __restrict__ kept) {
+  let_next_start();
+  const int r = blockIdx.x * CROWS + threadIdx.x;
+  const int c =
+      __syncthreads_count(r < n_rows && keep[r] != 0) +
+      __syncthreads_count(r + CTHREADS < n_rows && keep[r + CTHREADS] != 0);
+  if (threadIdx.x == 0) kept[blockIdx.x] = c;
+}
+
+// The sum of v over the block (every thread gets it); red: a word a warp.
+__device__ __forceinline__ int block_sum(int v, int* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  int s = 0;
+#pragma unroll
+  for (int i = 0; i < CTHREADS / 32; ++i) s += red[i];
+  return s;
+}
+
+__global__ void __launch_bounds__(CTHREADS)
+compact_rows(const int4* __restrict__ rows,
+             const unsigned char* __restrict__ keep,
+             const int* __restrict__ kept_of, int4* __restrict__ out,
+             int* __restrict__ total, int n_rows) {
+  __shared__ int slot[CROWS];  // the block's kept rows, by rank
+  __shared__ int red[CTHREADS / 32];
+  const int r0 = blockIdx.x * CROWS;
+  const int n_here = min(CROWS, n_rows - r0);
+  // This thread's two rows and their ranks in the block.
+  const int i0 = 2 * threadIdx.x;
+  const bool k0 = i0 < n_here && keep[r0 + i0] != 0;
+  const bool k1 = i0 + 1 < n_here && keep[r0 + i0 + 1] != 0;
+  const int c = (int)k0 + (int)k1;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int inc = c;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(FULL, inc, o);
+    if (lane >= o) inc += y;
+  }
+  if (lane == 31) red[warp] = inc;
+  __syncthreads();
+  int rank = inc - c, kept = 0;
+#pragma unroll
+  for (int w = 0; w < CTHREADS / 32; ++w) {
+    const int v = red[w];
+    rank += w < warp ? v : 0;
+    kept += v;
+  }
+  if (k0) slot[rank++] = i0;
+  if (k1) slot[rank] = i0 + 1;
+  // The kept rows of the blocks before this one: compact_count's.
+  wait_prior();
+  int p = 0;
+  for (int i = threadIdx.x; i < blockIdx.x; i += CTHREADS) p += kept_of[i];
+  __syncthreads();  // slot is complete, red free again
+  const int prefix = block_sum(p, red);
+  const int4* src = rows + (size_t)r0 * ROW_VEC;
+  int4* dst = out + (size_t)prefix * ROW_VEC;
+  for (int i = threadIdx.x; i < kept * ROW_VEC; i += CTHREADS) {
+    const int k = i / ROW_VEC;
+    dst[i] = src[slot[k] * ROW_VEC + (i - k * ROW_VEC)];
+  }
+  const int dead = n_here - kept;
+  int4* zeros = out + (size_t)(n_rows - (r0 - prefix) - dead) * ROW_VEC;
+  for (int i = threadIdx.x; i < dead * ROW_VEC; i += CTHREADS)
+    zeros[i] = make_int4(0, 0, 0, 0);
+  if (blockIdx.x == gridDim.x - 1 && threadIdx.x == 0)
+    *total = prefix + kept;
+}
+
 }  // namespace
 
 // rows (n_src, words) and out (cap, words) are int32 words, out 16-byte
@@ -120,4 +229,38 @@ extern "C" int piet_expand(const void* rows, const void* counts,
       static_cast<const int*>(excl), static_cast<int*>(out), n_src, words,
       cap);
   return (int)cudaGetLastError();
+}
+
+// rows and out (n_rows, 20) int32, 16-byte aligned; keep (n_rows,) bytes,
+// nonzero = kept; scratch ceil(n_rows / 512) + 1 int32: the blocks' kept
+// counts, then the live total.
+extern "C" int piet_compact_rows(const void* rows, const void* keep,
+                                 void* scratch, void* out, int n_rows,
+                                 cudaStream_t stream) {
+  int* kept = static_cast<int*>(scratch);
+  if (n_rows < 0 || (long long)n_rows * ROW_VEC * 4 >= 0x7FFFFFFFLL ||
+      ((reinterpret_cast<size_t>(rows) | reinterpret_cast<size_t>(out)) &
+       15) != 0)
+    return (int)cudaErrorInvalidValue;
+  if (n_rows == 0) return (int)cudaMemsetAsync(kept, 0, sizeof(int), stream);
+  const int nb = (n_rows + CROWS - 1) / CROWS;
+  const auto* k = static_cast<const unsigned char*>(keep);
+  compact_count<<<nb, CTHREADS, 0, stream>>>(k, n_rows, kept);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // Behind compact_count with programmatic stream serialization.
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nb);
+  cfg.blockDim = dim3(CTHREADS);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, compact_rows,
+                           static_cast<const int4*>(rows), k,
+                           static_cast<const int*>(kept),
+                           static_cast<int4*>(out), kept + nb, n_rows);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }

@@ -32,6 +32,7 @@ import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -48,13 +49,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: Launches per kernel wrapper (one per wrapper call that launched its
 #: kernel).  Plain-version calls never count.
 #: Kernel D counts its paired instantiation ("fine_paired") apart from
-#: its run dispatch ("fine"); the four kernels of ``csrc/probes.cu`` and
-#: the two of ``csrc/mosaic_probe.cu`` (the tools', ``ops/probes.py``)
-#: count one each.
+#: its run dispatch ("fine"), and expand.cu its pairing compaction
+#: ("expand_pairing", ``piet_compact_rows``) apart from the expansion
+#: ("expand"); the four kernels of ``csrc/probes.cu`` and the two of
+#: ``csrc/mosaic_probe.cu`` (the tools', ``ops/probes.py``) count one
+#: each.
 LAUNCHES = {"candfuse": 0, "hitfuse": 0, "sort": 0, "fine": 0, "expand": 0,
             "keyed": 0, "gatherm": 0, "fine_dense": 0, "fine_paired": 0,
-            "probe_div": 0, "probe_numerics": 0, "probe_halfmix": 0,
-            "probe_delivery": 0, "probe_mosaic": 0, "probe_dma16": 0}
+            "expand_pairing": 0, "probe_div": 0, "probe_numerics": 0,
+            "probe_halfmix": 0, "probe_delivery": 0, "probe_mosaic": 0,
+            "probe_dma16": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -68,6 +72,7 @@ _SIGNATURES = {
                   _P],
     "piet_fine_entries": [_P] * 6 + [_I] * 6 + [_P],
     "piet_expand": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "piet_compact_rows": [_P, _P, _P, _P, _I, _P],
     "piet_keyed": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                    _I, _P],
     "piet_gather_rows": [_P] * 6 + [_I] * 4 + [_P],
@@ -177,6 +182,27 @@ def build() -> Path:
         for o in objs:
             o.unlink(missing_ok=True)
     return out
+
+
+def resource_usage(lib=None) -> dict:
+    """Each kernel's resources in a built library (the port's by default),
+    as the toolkit's ``cuobjdump --dump-resource-usage`` reports them:
+    mangled name -> {"REG": registers a thread, "STACK": stack (local
+    memory) bytes a thread, "SHARED": static shared bytes, "LOCAL": ...}.
+    """
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "--dump-resource-usage", str(lib or build())],
+                         capture_output=True, text=True, check=True).stdout
+    usage, name = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function (\S+):", line)
+        if m:
+            name = m.group(1)
+        elif name and "REG:" in line:
+            usage[name] = {k: int(v) for k, v in
+                           re.findall(r"(\w+(?:\[\d+\])?):(\d+)", line)}
+            name = None
+    return usage
 
 
 def library() -> ctypes.CDLL:

@@ -15,10 +15,11 @@ merged entry carries 2.
 
 Two modes: ``"compact"`` drops the merged seconds stably (the live prefix
 shrinks), ``"hole"`` zeroes them in place (an all-zero entry matches no
-class in the fine kernel).  On a CUDA device the compaction is one call of
-the expand kernel (``csrc/expand.cu``): keeping rows with 0/1 counts is a
-ragged expansion.  :func:`compact_rows_plain`, the JAX module's scatter
-and gather, is its plain version.
+class in the fine kernel).  On a CUDA device the compaction is a kernel
+of its own (``piet_compact_rows`` in ``csrc/expand.cu``: two launches,
+each kept row's slot its rank, no owner search), where the JAX module
+ran its expand engine with 0/1 counts; :func:`compact_rows_plain`, the
+JAX module's scatter and gather, is its plain version.
 
 Rows are int32 bit patterns, as in the coarse pass; the merged words are
 the JAX module's, bit for bit (tests/test_torch_pairing.py).
@@ -35,7 +36,6 @@ from .. import kernels
 from ..layout.entry_stream import (W_META, W_S0_ARG, W_S0_TAG, W_S1_ARG,
                                    W_S1_TAG)
 from ..raster.ptcl import CMD_FILL, CMD_LINE
-from .expand import expand_rows
 
 F32, I32 = torch.float32, torch.int32
 
@@ -71,8 +71,13 @@ def _f32_bits(v: float) -> int:
     return int(torch.tensor(v, dtype=F32).view(I32))
 
 
-def compact_rows_plain(bundle: torch.Tensor,
-                       keep: torch.Tensor) -> torch.Tensor:
+#: Constants of csrc/expand.cu's compaction: rows per block, and the
+#: row width it takes (the bundle's 16 entry words and 4 metadata words).
+COMPACT_ROWS = 512
+ROW_WORDS = 20
+
+
+def compact_rows_plain(bundle: torch.Tensor, keep: torch.Tensor):
     """Plain version of :func:`compact_rows`: each kept row's position by
     a cumulative sum, a scatter of its index, a gather."""
     E = bundle.shape[0]
@@ -81,16 +86,39 @@ def compact_rows_plain(bundle: torch.Tensor,
     idx = torch.arange(E, dtype=I32, device=bundle.device)
     pos_idx = torch.zeros((E + 1,), dtype=I32, device=bundle.device)
     pos_idx[torch.where(keep, pos, E).long()] = idx
-    live = idx < keep_i.sum()
-    return torch.where(live[:, None], bundle[pos_idx[:E].long()], 0)
+    total = keep_i.sum(dtype=I32)
+    live = idx < total
+    return torch.where(live[:, None], bundle[pos_idx[:E].long()], 0), total
 
 
-def compact_rows(bundle: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
-    """The kept rows of ``bundle`` (E, W) int32 in order, then all-zero
-    rows: on a CUDA device one call of the expand kernel with 0/1 counts."""
+def compact_rows(bundle: torch.Tensor, keep: torch.Tensor):
+    """The kept rows of ``bundle`` in order, then all-zero rows.
+
+    Args:
+      bundle: (E, 20) int32 rows (on a CUDA device 16-byte aligned).
+      keep: (E,) bool.
+
+    Returns (rows (E, 20) int32, the number of kept rows as a 0-d int32
+    tensor).  On a CUDA device the compaction kernel, which reads
+    ``keep`` as it is and counts the rows itself.
+    """
     if not kernels.on_cuda(bundle, keep):
         return compact_rows_plain(bundle, keep)
-    return expand_rows(bundle, keep.to(I32), bundle.shape[0])
+    E = bundle.shape[0]
+    kernels.check_cuda_tensor(bundle, I32, "bundle", (E, ROW_WORDS))
+    kernels.check_cuda_tensor(keep, torch.bool, "keep", (E,))
+    if bundle.data_ptr() % 16:
+        raise ValueError("bundle must be 16-byte aligned")
+    if E * ROW_WORDS >= 2 ** 31:
+        raise ValueError("compact_rows: E * 20 must stay below 2^31")
+    n_blocks = -(-E // COMPACT_ROWS)
+    # The blocks' kept counts, then the total: every word written by the
+    # kernel, none read before it is.
+    scratch = torch.empty((n_blocks + 1,), dtype=I32, device=bundle.device)
+    out = torch.empty_like(bundle)
+    kernels.launch("expand_pairing", "piet_compact_rows", bundle.data_ptr(),
+                   keep.data_ptr(), scratch.data_ptr(), out.data_ptr(), E)
+    return out, scratch[n_blocks]
 
 
 def pair_entries(rows: torch.Tensor, keys: Tuple[torch.Tensor, ...],
@@ -178,17 +206,17 @@ def pair_entries(rows: torch.Tensor, keys: Tuple[torch.Tensor, ...],
         raise ValueError(f"unknown pair mode {mode!r}")
 
     keep = live & ~is_second
-    new_live = idx < keep.to(I32).sum()
     bundle = torch.cat([merged, e_tile.to(I32)[:, None], mncmds[:, None],
                         e_is_opaque.to(I32)[:, None],
                         e_is_clear.to(I32)[:, None]], dim=1).contiguous()
     if taps is not None:
         taps["pairing"] = (bundle, keep)
-    out = compact_rows(bundle, keep)
+    # The compaction's rows past the total are zero: dead entries, n_cmds
+    # 0, neither opaque nor clear; only their tile needs setting.
+    out, total = compact_rows(bundle, keep)
+    new_live = idx < total
     return PairedEntries(
-        rows=torch.where(new_live[:, None], out[:, :words], 0),
-        live=new_live,
+        rows=out[:, :words].contiguous(), live=new_live,
         e_tile=torch.where(new_live, out[:, words], n_tiles),
-        e_ncmds=torch.where(new_live, out[:, words + 1], 0),
-        e_is_opaque=new_live & (out[:, words + 2] != 0),
-        e_is_clear=new_live & (out[:, words + 3] != 0))
+        e_ncmds=out[:, words + 1], e_is_opaque=out[:, words + 2] != 0,
+        e_is_clear=out[:, words + 3] != 0)

@@ -24,6 +24,7 @@ from piet_tpu_torch.config import RenderConfig
 from piet_tpu_torch.ops import (candfuse, coarse, expand, fine, fine_xla,
                                 gatherm, hitfuse, keyed, probes, sort)
 from piet_tpu_torch.raster.cpu_fine import cpu_render_scene
+from piet_tpu_torch.raster.synth_entries import synth_entry_streams
 from piet_tpu_torch.raster.synth_ptcl import synth_dense_ptcl
 from piet_tpu_torch.renderer.capacity import fit_capacities
 from piet_tpu_torch.renderer.graph import device_ops as graph_device_ops
@@ -137,13 +138,13 @@ def _c_entry_points(text: str) -> dict:
 
 def test_every_kernel_has_an_entry_point_and_a_counter():
     """Each .cu source defines C entry points, and one launch counter
-    counts them (kernel D's paired instantiation has a second one; the
-    kernels of probes.cu and mosaic_probe.cu, the tools', one each); every
-    entry point's ctypes signature matches its C parameters, the stream
-    last."""
+    counts them (kernel D's paired instantiation and pairing's
+    compaction in expand.cu have a second one each; the kernels of
+    probes.cu and mosaic_probe.cu, the tools', one each); every entry
+    point's ctypes signature matches its C parameters, the stream last."""
     names = {p.stem for p in kernels.CSRC.glob("*.cu")} - {"probes",
                                                             "mosaic_probe"}
-    assert (names | {"fine_paired"} | set(probes.KERNELS)
+    assert (names | {"fine_paired", "expand_pairing"} | set(probes.KERNELS)
             == set(kernels.LAUNCHES))
     found = {}
     for src in kernels.CSRC.glob("*.cu"):
@@ -570,6 +571,7 @@ def test_cuda_animated_frame_equals_oracle(t):
     launches = dict(kernels.LAUNCHES)
     assert launches.pop("fine_dense") == 0     # the entries route
     assert launches.pop("fine_paired") == 0    # an unpaired stream
+    assert launches.pop("expand_pairing") == 0
     assert all(v > 0 for k, v in launches.items()
                if k not in probes.KERNELS), kernels.LAUNCHES
     got = img.cpu().numpy().view(np.uint8).reshape(256, 256, 4)
@@ -655,6 +657,7 @@ def test_cuda_render_bitwise_equals_oracle(name, make, size, th):
     assert launches.pop("expand") == 0
     assert launches.pop("fine_dense") == 0
     assert launches.pop("fine_paired") == 0
+    assert launches.pop("expand_pairing") == 0
     assert all(v > 0 for k, v in launches.items()
                if k not in probes.KERNELS), kernels.LAUNCHES
     np.testing.assert_array_equal(got, cpu_render_scene(scene, r.config),
@@ -1083,10 +1086,30 @@ PAIR_SCENES = [
 def test_cuda_paired_fine_equals_plain(name, make, size, th, tw, mode,
                                        monkeypatch):
     """Kernel D's paired instantiation against its plain version on the
-    card, on paired streams (F2 and L2 entries, holes, group commands);
-    pairing's compaction (the expand kernel) against its scatter and
-    gather; the paired frame against the oracle."""
+    card, on paired streams (F2 and L2 entries, holes, group commands)
+    and on the synthetic streams of raster/synth_entries.py (streaks
+    across the chunk boundary, holes, the state copy at a begin clip;
+    their unpaired stream through run dispatch), each also against the
+    numpy oracle; pairing's compaction (its own kernel) against its
+    scatter and gather; the paired frame against the oracle."""
     _needs_cuda()
+    for seed, stw in ((0, 128), (1, 16)):
+        syn = synth_entry_streams(seed, tile_w=stw)
+        for smode in ("off", mode):
+            st = syn.streams[smode]
+            sargs = tuple(torch.from_numpy(x).cuda() for x in (
+                st.first, st.n_entries, np.zeros_like(st.first), st.stream))
+            skw = dict(tile_h=syn.tile_h, tile_w=syn.tile_w,
+                       tiles_x=syn.tiles_x, paired=smode != "off")
+            kernels.reset_launches()
+            sgot = fine.fine_rasterize_entries(*sargs, **skw)
+            assert kernels.LAUNCHES["fine_paired" if smode != "off"
+                                    else "fine"] == 1
+            assert torch.equal(sgot, fine.fine_rasterize_entries_plain(
+                *sargs, **skw)), (seed, stw, smode)
+            np.testing.assert_array_equal(
+                sgot.cpu().numpy().view(np.uint8).reshape(syn.oracle.shape),
+                syn.oracle, err_msg=f"{seed} {stw} {smode}")
     from piet_tpu_torch.ops import pairing
     scene = make()
     cfg = fit_capacities(scene, RenderConfig(width=size, height=size,
@@ -1109,16 +1132,57 @@ def test_cuda_paired_fine_equals_plain(name, make, size, th, tw, mode,
     assert torch.equal(got, fine.fine_rasterize_entries_plain(*args, **kw))
     if mode == "compact":
         bundle, keep = taps["pairing"]
-        assert torch.equal(pairing.compact_rows(bundle, keep),
-                           pairing.compact_rows_plain(bundle, keep))
+        got, total = pairing.compact_rows(bundle, keep)
+        want, want_total = pairing.compact_rows_plain(bundle, keep)
+        assert torch.equal(got, want) and torch.equal(total, want_total)
     monkeypatch.setenv("PIET_PAIR", mode)
     r = Renderer(cfg, "cuda", fine_impl="entries")
     kernels.reset_launches()
     np.testing.assert_array_equal(r.render(scene),
                                   cpu_render_scene(scene, cfg))
-    assert kernels.LAUNCHES["expand"] == (mode == "compact")
+    assert kernels.LAUNCHES["expand_pairing"] == (mode == "compact")
+    assert kernels.LAUNCHES["expand"] == 0
     assert kernels.LAUNCHES["fine_paired"] == 1
     assert kernels.LAUNCHES["fine"] == 0
+
+
+#: The compaction's cases on the card: which rows are kept and E (blocks
+#: of 512 rows; the tiger's compact pass has E = 67,584).
+CUDA_COMPACT_CASES = [("all kept", 1100), ("none kept", 1100),
+                      ("last kept", 1100), ("first kept", 513),
+                      ("random", 1), ("random", 1537),
+                      ("random", 67_584), ("random", 368_640)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,E", CUDA_COMPACT_CASES,
+                         ids=[f"{c}-{e}" for c, e in CUDA_COMPACT_CASES])
+def test_cuda_compaction_equals_plain(case, E):
+    """Pairing's compaction kernel against its plain version (the scatter
+    and gather), rows and total, bit for bit; one launch counted under
+    "expand_pairing", two device ops (its two launches), no expand."""
+    _needs_cuda()
+    from piet_tpu_torch.ops import pairing
+    g = torch.Generator(device="cuda").manual_seed(E)
+    bundle = torch.randint(-2 ** 31, 2 ** 31 - 1, (E, pairing.ROW_WORDS),
+                           generator=g, device="cuda", dtype=torch.int32)
+    idx = torch.arange(E, device="cuda")
+    keep = {"all kept": idx >= 0, "none kept": idx < 0,
+            "last kept": idx == E - 1, "first kept": idx == 0}.get(
+        case, torch.rand(E, generator=g, device="cuda") < 0.35)
+    kernels.reset_launches()
+    got, total = pairing.compact_rows(bundle, keep)
+    assert kernels.LAUNCHES["expand_pairing"] == 1
+    assert kernels.LAUNCHES["expand"] == 0
+    want, want_total = pairing.compact_rows_plain(bundle, keep)
+    assert torch.equal(got, want) and torch.equal(total, want_total)
+    assert total.shape == () and int(total) == int(keep.sum())
+    ops = _device_ops(lambda: pairing.compact_rows(bundle, keep))
+    assert ops == ["kernel", "kernel"], ops
+    with pytest.raises(ValueError):
+        pairing.compact_rows(bundle[:, :16].contiguous(), keep)
+    with pytest.raises(TypeError):
+        pairing.compact_rows(bundle, keep.to(torch.int32))
 
 
 @pytest.mark.cuda

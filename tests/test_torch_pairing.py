@@ -6,8 +6,8 @@ stream, and ``coarse_rasterize(pair=...)`` on the cases of
 tests/test_pairing.py, word for word in both modes (the JAX pass eager,
 on its staged record route).  The paired images from kernel D's plain
 version are held bitwise against the numpy oracle and the unpaired image.
-The compaction's two routes (the expand kernel's plain version, and the
-scatter and gather) are held against each other.
+The compaction's plain version is held against the expansion with 0/1
+counts and against the JAX package's compaction on its edge cases.
 """
 
 import numpy as np
@@ -117,19 +117,84 @@ def test_pair_entries_matches_jax(mode, seed):
 
 
 def test_compaction_routes_agree():
-    """The compaction as the card runs it (expand_rows with 0/1 counts;
-    its plain version here) equals the scatter and gather."""
+    """The compaction's plain version (the scatter and gather) equals the
+    expansion with 0/1 counts (expand_rows, as the TPU package ran it),
+    and compact_rows on the CPU is the plain version, with the total."""
     rows, keys, live, *_ = _synth_stream(2)
     keep = torch.from_numpy(live) & (torch.rand(live.shape[0],
                                                 generator=torch.Generator()
                                                 .manual_seed(2)) < 0.6)
     bundle = torch.from_numpy(rows.view(np.int32).copy())
-    a = pairing.compact_rows_plain(bundle, keep)
+    a, total = pairing.compact_rows_plain(bundle, keep)
     b = expand_rows(bundle, keep.to(torch.int32), bundle.shape[0])
     assert torch.equal(a, b)
-    assert torch.equal(pairing.compact_rows(bundle, keep), a)
+    got, got_total = pairing.compact_rows(bundle, keep)
+    assert torch.equal(got, a) and torch.equal(got_total, total)
     n = int(keep.sum())
+    assert total.dtype == torch.int32 and total.shape == () and total == n
     assert torch.equal(a[:n], bundle[keep]) and not a[n:].any()
+
+
+#: Compaction edge cases: which rows are kept, and E (the kernel's blocks
+#: are 512 rows: 1100 and 1537 end in a ragged block).
+COMPACT_CASES = [("all kept", 1100), ("none kept", 1100),
+                 ("last kept", 1100), ("all kept", 1024), ("random", 1537)]
+
+
+def _keep_case(case, E, rng):
+    if case == "all kept":
+        return np.ones(E, bool)
+    if case == "none kept":
+        return np.zeros(E, bool)
+    if case == "last kept":
+        return np.arange(E) == E - 1
+    return rng.uniform(size=E) < 0.4
+
+
+@pytest.mark.parametrize("expand_impl", ["xla", "pallas_interpret"])
+@pytest.mark.parametrize("case,E", COMPACT_CASES,
+                         ids=[f"{c}-{e}" for c, e in COMPACT_CASES])
+def test_compact_rows_plain_matches_jax(case, E, expand_impl):
+    """compact_rows_plain against the JAX package's compaction: its
+    pair_entries on rows that nothing pairs (tail commands), so that it
+    keeps exactly its live rows, through the scatter and gather and
+    through its expand engine in interpret mode."""
+    rng = np.random.default_rng(E)
+    n_tiles = 9
+    rows = rng.standard_normal((E, ENTRY_WORDS)).astype(np.float32)
+    rows.view(np.uint32)[::11, 3] = 0x7FC00001
+    rows[::13, 5] = -0.0
+    rows[:, W_S0_TAG] = CMD_SOLID
+    rows[:, W_S1_TAG] = 0.25
+    keep = _keep_case(case, E, rng)
+    e_tile = np.sort(rng.integers(0, n_tiles, E)).astype(np.int32)
+    ncmds = rng.integers(1, 3, E).astype(np.int32)
+    opq, clr = rng.uniform(size=E) < 0.3, rng.uniform(size=E) < 0.5
+    want = jpairing.pair_entries(
+        jnp.asarray(rows), (jnp.asarray(np.arange(E, dtype=np.float32)),),
+        jnp.asarray(keep), jnp.asarray(e_tile), jnp.asarray(ncmds),
+        jnp.asarray(opq), jnp.asarray(clr), n_tiles,
+        expand_impl=expand_impl, mode="compact")
+    cols = [torch.from_numpy(c.astype(np.int32))[:, None]
+            for c in (e_tile, ncmds, opq, clr)]
+    bundle = torch.cat([torch.from_numpy(rows.view(np.int32).copy())]
+                       + cols, dim=1)
+    got, total = pairing.compact_rows_plain(bundle, torch.from_numpy(keep))
+    n = int(keep.sum())
+    assert total.dtype == torch.int32 and int(total) == n
+    np.testing.assert_array_equal(np.asarray(want.live), np.arange(E) < n)
+    np.testing.assert_array_equal(got[:, :ENTRY_WORDS].numpy().view(
+        np.uint32), _bits(want.rows))
+    live = np.arange(E) < n
+    np.testing.assert_array_equal(
+        np.where(live, got[:, ENTRY_WORDS].numpy(), n_tiles),
+        np.asarray(want.e_tile))
+    for j, f in ((1, "e_ncmds"), (2, "e_is_opaque"), (3, "e_is_clear")):
+        np.testing.assert_array_equal(
+            got[:, ENTRY_WORDS + j].numpy().astype(
+                np.asarray(getattr(want, f)).dtype),
+            np.asarray(getattr(want, f)), f)
+    assert not got[n:].any()
 
 
 def _kw(cfg):
