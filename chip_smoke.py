@@ -144,13 +144,18 @@ and exits non-zero:
      half_experiment, arg_delivery_bench and fine_entry_bench run through
      their ``main`` at the JAX tools' sizes, their lines printed after the
      card's nvidia-smi line, the launch counters reset before and read
-     after (each of the four probe kernels of csrc/probes.cu must have
-     run); then each probe kernel bitwise against its plain version on
-     the tools' inputs (every op and shape, state type and grid,
-     variant), probe_div and probe_numerics 0 words off the numpy mirror
-     (a mismatch fails the run), kernel D against its plain version on
-     the bench's four streams, and each probe kernel timed beside its
-     plain version and its bound;
+     after (each of the three probe kernels of csrc/probes.cu must have
+     run, and probe_numerics' division for div_probe, counted as
+     probe_div); then each probe kernel bitwise against its plain version
+     on the tools' inputs (every op and shape, state type and grid,
+     delivery variant at one tile with the tool's REPS and at 676 tiles
+     with 16, every tile's count of chain updates equal to
+     delivery_passes), probe_div and probe_numerics 0 words off the numpy
+     mirror (a mismatch fails the run), kernel D against its plain
+     version on the bench's four streams, and each probe kernel timed
+     beside its plain version and its bound (probe_div and the div and
+     sqrt ops beside torch.div and torch.sqrt; every delivery variant at
+     both widths);
   9. the rest of the tools: mosaic_probe (every probe of the JAX tool,
      kernel against plain at both fills of its unwritten scratch),
      grad_exact_probe and grad_tile_probe (the gradient demo on kernel
@@ -186,8 +191,8 @@ read: sort's second is the beziers_10k frame; phase 10's two benchmark
 runs are on every frame kernel that they launch), the sort with its
 device-memory route's times, kernel D's paired instantiation
 ("fine_paired") and pairing's compaction ("expand_pairing") with the
-launches of phase 4e's paired frames, the four probe
-kernels with phase 8's and the two access-pattern probe kernels with
+launches of phase 4e's paired frames, the three probe kernels and
+probe_div with phase 8's and the two access-pattern probe kernels with
 phase 9's; the last line is
 {"ok": true,
 "device": {...}}.  Exits non-zero without a result when no CUDA device is
@@ -2099,8 +2104,9 @@ def phase_cli(card, dev, scene, cfg, tiger_gold, aff_render, aff_ni,
     return paths
 
 
-#: The tools' kernels (csrc/probes.cu), each with the JAX tool function
-#: whose Pallas kernel it replaces.
+#: The tools' kernels (csrc/probes.cu; probe_div is probe_numerics'
+#: division op, counted apart), each with the JAX tool function whose
+#: Pallas kernel it replaces.
 TOOL_KERNELS = {
     "probe_div": "tools/div_probe.py:27",
     "probe_numerics": "tools/mosaic_numerics_probe.py:35",
@@ -2112,11 +2118,12 @@ TOOL_KERNELS = {
 def phase_tools(card, dev) -> dict:
     """Phase 8: the five tools of piet_tpu_torch/tools/ as a user runs
     them (``main``), at the JAX tools' sizes, the launch counters reset
-    before and read after (each of the four probe kernels must have run);
+    before and read after (each of the four counters must have moved);
     then each probe kernel bitwise against its plain version on the
-    tools' own inputs, probe_div and probe_numerics 0 words off the numpy
-    mirror (else the run fails), kernel D against its plain version on
-    the bench's streams; and each probe kernel timed beside its plain
+    tools' own inputs (probe_delivery on every tile at 1 and 676 tiles,
+    with its pass counts), probe_div and probe_numerics 0 words off the
+    numpy mirror (else the run fails), kernel D against its plain version
+    on the bench's streams; and each probe kernel timed beside its plain
     version and its bound.  Returns the kernel table's rows."""
     import contextlib
     import io
@@ -2129,6 +2136,7 @@ def phase_tools(card, dev) -> dict:
     from piet_tpu_torch.tools import (arg_delivery_bench, div_probe,
                                       fine_entry_bench, half_experiment,
                                       mosaic_numerics_probe)
+    from piet_tpu_torch.tools.probes_ab import l2_cold
 
     t_phase = time.perf_counter()
     print(card, flush=True)
@@ -2153,14 +2161,15 @@ def phase_tools(card, dev) -> dict:
     assert all(n > 0 for n in launches.values()), launches
     assert kernels.LAUNCHES["fine"] > 0
 
-    # probe_div on the tool's 2^20 operands: against the plain division
-    # (torch's) and numpy's IEEE quotient.
+    # probe_div (probe_numerics' division) on the tool's 2^20 operands:
+    # against the plain division (torch's) and numpy's IEEE quotient.
     a, b = div_probe.operands()
     at, bt = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
     div_out = probes.probe_div(at, bt)
     checks = {"probe_div": [bitwise(div_out, probes.probe_div_plain(at, bt))]}
     off = div_probe.words_off(div_out.cpu().numpy(), a / b)
-    print(f"tool probe_div: {off} words off numpy of {a.size}", flush=True)
+    print(f"tool probe_div: {off} words off numpy of {a.size} (the "
+          f"probe_numerics kernel's division op)", flush=True)
     assert off == 0, "probe_div differs from numpy's quotient"
 
     # probe_numerics: every op at both shapes, the 16 batches in one
@@ -2192,23 +2201,43 @@ def phase_tools(card, dev) -> dict:
                     probes.probe_halfmix(init, kind, tiles, n_it),
                     probes.probe_halfmix_plain(init, kind, tiles, n_it)))
 
-    # probe_delivery: every variant on the tool's stream (N, REPS).  The
-    # dispatch variant's state ends at +inf everywhere there (178
+    # probe_delivery: every variant on the tool's stream, at one tile with
+    # its REPS and at 676 tiles with 16, every tile's state bitwise the
+    # plain version's and its count of chain updates delivery_passes'.
+    # The dispatch variant's state ends at +inf everywhere there (178
     # multiplies past its last tag-3 entry), so it is held also on the
     # stream's first 87 entries, whose last is its first tag-3 entry and
-    # whose state ends finite.  The min variants' results cannot show
-    # how many passes ran (a minimum is idempotent): their times can.
+    # whose state ends finite.  Each call is timed beside its bound.
     data = arg_delivery_bench.data(device=dev)
-    reps = arg_delivery_bench.REPS
+    widths = ((1, arg_delivery_bench.REPS),
+              (arg_delivery_bench.WIDE_TILES, arg_delivery_bench.WIDE_REPS))
     checks["probe_delivery"] = []
     for v in probes.DELIVERY_VARIANTS:
         cases = [data] + ([data[:87].clone()] if v == "disp16" else [])
         for x in cases:
-            got = probes.probe_delivery(x, v, reps)
-            checks["probe_delivery"].append(
-                bitwise(got, probes.probe_delivery_plain(x, v, reps)))
-            if v != "disp16" or x is not data:
-                assert torch.isfinite(got).all(), f"probe_delivery {v}"
+            for tiles, reps in widths:
+                got, passes = probes.probe_delivery(x, v, reps, tiles)
+                want, want_passes = probes.probe_delivery_plain(
+                    x, v, reps, tiles)
+                checks["probe_delivery"].append(bitwise(got, want))
+                n_pass = probes.delivery_passes(x, v, reps)
+                assert passes.tolist() == want_passes.tolist() == (
+                    [n_pass] * tiles), (v, tiles, passes.unique())
+                if v != "disp16" or x is not data:
+                    assert torch.isfinite(got).all(), f"probe_delivery {v}"
+        for tiles, reps in widths:
+            ms = time_ms(lambda: probes.probe_delivery(data, v, reps, tiles),
+                         reps=2, warm=0)
+            b_ms, b_by = bound(data.numel() * 4 + tiles * (
+                probes.DELIVERY_VARIANTS[v][0] * 128 + 1) * 4,
+                probes.delivery_ops(data, v, reps, tiles))
+            print(f"timing probe_delivery {v} [{card}]: {tiles} tiles x "
+                  f"{reps} reps, {ms:.4f} ms, "
+                  f"{ms * 1e6 / (data.shape[0] * reps * tiles):.3f} ns per "
+                  f"entry and tile, bound {b_ms:.5f} ms ({b_by}), "
+                  f"{100 * b_ms / ms:.2f}% of it; "
+                  f"{probes.delivery_passes(data, v, reps)} chain updates "
+                  f"a tile", flush=True)
 
     # Kernel D on the bench's streams (n = 34 a tile, each mix).
     fe_bad = 0
@@ -2243,11 +2272,16 @@ def phase_tools(card, dev) -> dict:
     hm_shape, hm_tiles = half_experiment.SHAPES[0], half_experiment.TILES[1]
     hm_init = probes.halfmix_init(hm_shape[0], dev)
     n_it = half_experiment.N_ITER
+    # probe_div's operands and output (12.6 MB a call) would stay in the
+    # 50 MB L2 between back-to-back calls: each call takes the next of
+    # sets (operands and output) that together are 4x the L2, so it reads
+    # and writes device memory, as its bound counts.
     rows["probe_div"].update(
-        time=lambda: probes.probe_div(at, bt),
-        time_plain=lambda: probes.probe_div_plain(at, bt),
-        library=lambda: torch.div(at, bt), bytes=3 * at.numel() * 4,
-        timed="the tool's 2^20 operands")
+        time=l2_cold(probes.probe_div, at, bt),
+        time_plain=l2_cold(probes.probe_div_plain, at, bt),
+        library=l2_cold(torch.div, at, bt), bytes=3 * at.numel() * 4,
+        timed="the tool's 2^20 operands, probe_numerics' division; "
+        "operand and output sets 4x the L2 taken in turn")
     rows["probe_numerics"].update(
         time=lambda: [probes.probe_numerics(n, *i) for n, i in num_calls],
         time_plain=lambda: [probes.probe_numerics_plain(n, *i)
@@ -2263,14 +2297,28 @@ def phase_tools(card, dev) -> dict:
         ops=(hm_tiles * hm_init[0].numel() * n_it
              * probes.HALFMIX_OPS_PER_STEP),
         timed=f"f32, {hm_shape}, {hm_tiles} tiles, {n_it} steps")
+    w_tiles, w_reps = widths[1]
     rows["probe_delivery"].update(
-        time=lambda: probes.probe_delivery(data, "smem", reps),
-        time_plain=lambda: probes.probe_delivery_plain(data, "smem", reps),
-        bytes=data.numel() * 4 + 8 * 128 * 4,
-        ops=probes.delivery_ops(data, "smem", reps),
-        timed=f"smem, {data.shape[0]} entries x {reps}, one tile")
+        time=lambda: probes.probe_delivery(data, "smem", w_reps, w_tiles),
+        time_plain=lambda: probes.probe_delivery_plain(data, "smem", w_reps,
+                                                       w_tiles),
+        bytes=data.numel() * 4 + w_tiles * (8 * 128 + 1) * 4,
+        ops=probes.delivery_ops(data, "smem", w_reps, w_tiles),
+        timed=f"smem, {data.shape[0]} entries x {w_reps}, {w_tiles} tiles")
+    # The tool's div and sqrt ops are single PyTorch calls: each op's
+    # launch (both shapes, 16 batches) beside torch.div and torch.sqrt.
+    for name, ins in num_calls:
+        lib = {"div": torch.div, "sqrt": torch.sqrt}.get(name)
+        if lib is None:
+            continue
+        k_ms = time_ms(lambda: probes.probe_numerics(name, *ins), reps=20)
+        l_ms = time_ms(lambda: lib(*ins), reps=20, warm=2)
+        print(f"timing probe_numerics {name} {tuple(ins[0].shape)} "
+              f"[{card}]: {k_ms:.4f} ms, torch.{name} {l_ms:.4f} ms, bound "
+              f"{bound(nbytes(*ins) + nbytes(ins[0]))[0]:.5f} ms (bytes)",
+              flush=True)
     for name, k in rows.items():
-        slow = name in ("probe_halfmix", "probe_delivery")
+        slow = name == "probe_halfmix"
         k["ms"] = time_ms(k["time"], reps=3 if slow else 20, warm=1)
         k["plain_ms"] = time_ms(k["time_plain"], reps=1 if slow else 20,
                                 warm=0 if slow else 1)

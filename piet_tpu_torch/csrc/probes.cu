@@ -1,18 +1,20 @@
 // The numerics probes and microbenchmarks of the tools (the port's
-// piet_tpu_torch/tools/): four kernels, each with its own C entry point.
+// piet_tpu_torch/tools/): three kernels, each with its own C entry point.
 //
-// - probe_div replaces tools/div_probe.py::mosaic_div (the Pallas kernel
-//   out = a / b).  Elementwise, one thread a word; bound by bytes (two
-//   words read, one written).  Under the build's -prec-div=true the
-//   quotient is IEEE's, which is what the probe asks of the card.
 // - probe_numerics replaces tools/mosaic_numerics_probe.py::run_pallas
-//   (one Pallas kernel per fine-math op and shape).  One kernel templated
-//   on the op, elementwise; the ops are written as the fine kernels
-//   write them: ieee_sqrt, srgb_encode and sat of cmd_math.cuh, and the
-//   tool's fill_delta_chain expression (kernel D's fill_delta,
+//   (one Pallas kernel per fine-math op and shape) and
+//   tools/div_probe.py::mosaic_div (out = a / b, its OP_DIV).  One kernel
+//   templated on the op, elementwise; the ops are written as the fine
+//   kernels write them: ieee_sqrt, srgb_encode and sat of cmd_math.cuh,
+//   and the tool's fill_delta_chain expression (kernel D's fill_delta,
 //   cmd_math.cuh, no longer evaluates it: its coverage is the difference
 //   of two fill_F terms, whose sat and min1 the saturate_sub op runs).
-//   Bound by bytes.
+//   Under the build's -prec-div=true the quotient is IEEE's, which is
+//   what the division probe asks of the card.  Bound by bytes: each
+//   thread takes 4 consecutive words, every operand read and the result
+//   written as one 16-byte access with the streaming hints (the wrapper
+//   checks the alignment); the last thread of a ragged n takes its 1-3
+//   words one by one.
 // - probe_halfmix replaces tools/half_experiment.py::run (the tool's
 //   "~24-op" state chain of one fine entry, 16 f32 operations a step,
 //   N_ITER times over a tile).  One block a tile, eight elements of a
@@ -25,16 +27,22 @@
 //   the tools also run 676 tiles (the 1664^2 tiger's count).
 // - probe_delivery replaces tools/arg_delivery_bench.py::run (nine
 //   kernels that deliver a fine entry's operands to the line_field_sq
-//   chain in different ways).  One block, the tool's grid of one tile of
-//   8, 16 or 32 rows of 128; per entry the chain over every pixel of the
-//   tile (or of its row window), min-accumulated into a register state.
-//   The TPU's delivery mechanisms map to: SMEM scalars -> uniform loads
-//   from device memory (every thread the same address, __ldg); VMEM
-//   splats -> the entry rows staged in shared memory a chunk at a time
-//   (cp.async, double-buffered) and read as broadcasts; sublane batches
-//   of 8 -> 8 staged entries an iteration, min-reduced before the state.
+//   chain in different ways).  One block a tile of 8, 16 or 32 rows of
+//   128, every tile the same (the tool's grid is one tile, which fills a
+//   TPU core's vector unit and 1/132 of the card: the tool also runs 676
+//   tiles); per entry the chain over every pixel of the tile (or of its
+//   row window), min-accumulated into a register state.  The TPU's
+//   delivery mechanisms map to: SMEM scalars -> uniform loads from
+//   device memory (every thread the same address, __ldg), entry j + 1's
+//   words fetched while entry j's chain runs, as the TPU's scalar unit
+//   has them ready ahead of the vector work; VMEM splats -> the entry
+//   rows staged in shared memory a chunk at a time (cp.async,
+//   double-buffered) and read as 16-byte broadcasts; sublane batches of
+//   8 -> 8 staged entries an iteration, min-reduced before the state.
 //   Bound by operations.  The kernels write the whole state (the tool
-//   returns rows 0-7), so no row's work is dead code.
+//   returns rows 0-7), so no row's work is dead code, and each tile's
+//   count of (entry, row) chain updates: a minimum is idempotent, so the
+//   state alone cannot show how many passes ran.
 //
 // The state of probe_halfmix starts from an input (the tool's 1, 2 and 0
 // planes) read per element: every element of a tile holds the same
@@ -50,18 +58,10 @@ constexpr int TILE_W = 128;                   // lanes of the tools' tiles
 constexpr int PX = 8;                         // elements of a row a thread
 constexpr int ROW_THREADS = TILE_W / PX;      // threads across a row
 constexpr int ELEM_THREADS = 256;             // elementwise kernels
+constexpr int VEC = 4;                        // words a thread, elementwise
 constexpr int ENTRY_WORDS = 16;               // the tool's (N, 16) rows
 constexpr int CHUNK = 128;                    // staged entries a buffer
 constexpr float STATE_INIT = PIET_F32(1e18);  // the tool's st init
-
-// ---- probe_div -------------------------------------------------------
-
-__global__ void __launch_bounds__(ELEM_THREADS)
-probe_div(const float* __restrict__ a, const float* __restrict__ b,
-          float* __restrict__ out, int n) {
-  const int i = blockIdx.x * ELEM_THREADS + threadIdx.x;
-  if (i < n) out[i] = a[i] / b[i];
-}
 
 // ---- probe_numerics ----------------------------------------------------
 
@@ -71,40 +71,79 @@ enum NumOp {
   OP_IEEE_SQRT, OP_SATURATE_SUB, N_OPS
 };
 
+__host__ __device__ constexpr int num_inputs(int op) {
+  return op == OP_MULADD2 ? 4
+         : op == OP_LERP ? 3
+         : op == OP_FILL_DELTA_CHAIN ? 5
+         : (op == OP_DIV || op == OP_SATURATE_SUB) ? 2
+                                                   : 1;
+}
+
 struct NumInputs {
   const float* p[5];
 };
 
+// The op on one word's operands v[0 .. num_inputs(OP)).
+template <int OP>
+__device__ __forceinline__ float num_op(const float* v) {
+  const float a = v[0];
+  if constexpr (OP == OP_DIV) {
+    return a / v[1];
+  } else if constexpr (OP == OP_SQRT) {
+    return sqrtf(a);
+  } else if constexpr (OP == OP_MULADD2) {
+    return (a * v[1]) + (v[2] * v[3]);
+  } else if constexpr (OP == OP_LERP) {
+    return a + ((v[1] - a) * v[2]);
+  } else if constexpr (OP == OP_FILL_DELTA_CHAIN) {
+    const float t = (v[1] * v[1]) - (v[2] * v[2]);
+    return ((a + (0.5f * t)) - v[3]) / (v[4] - v[3]);
+  } else if constexpr (OP == OP_SRGB_CHAIN) {
+    return (float)piet::srgb_encode(a);
+  } else if constexpr (OP == OP_IEEE_SQRT) {
+    return piet::ieee_sqrt(a);
+  } else {
+    // a - b is an arithmetic result, as sat requires.
+    return piet::sat(a - v[1]);
+  }
+}
+
+__device__ __forceinline__ float lane(const float4& f, int c) {
+  return c == 0 ? f.x : c == 1 ? f.y : c == 2 ? f.z : f.w;
+}
+
+// Thread t: words 4t .. 4t + 3, each operand one 16-byte load and the
+// result one 16-byte store, marked evict-first (__ldcs, __stcs: every
+// word is touched once); where fewer than 4 words are left, those words
+// one by one.
 template <int OP>
 __global__ void __launch_bounds__(ELEM_THREADS)
 probe_numerics(NumInputs in, float* __restrict__ out, int n) {
-  const int i = blockIdx.x * ELEM_THREADS + threadIdx.x;
-  if (i >= n) return;
-  const float a = in.p[0][i];
-  float r;
-  if constexpr (OP == OP_DIV) {
-    r = a / in.p[1][i];
-  } else if constexpr (OP == OP_SQRT) {
-    r = sqrtf(a);
-  } else if constexpr (OP == OP_MULADD2) {
-    r = (a * in.p[1][i]) + (in.p[2][i] * in.p[3][i]);
-  } else if constexpr (OP == OP_LERP) {
-    const float f = in.p[1][i], w = in.p[2][i];
-    r = a + ((f - a) * w);
-  } else if constexpr (OP == OP_FILL_DELTA_CHAIN) {
-    const float dq = in.p[1][i], cq = in.p[2][i], xmin = in.p[3][i],
-                xmax = in.p[4][i];
-    const float t = (dq * dq) - (cq * cq);
-    r = ((a + (0.5f * t)) - xmin) / (xmax - xmin);
-  } else if constexpr (OP == OP_SRGB_CHAIN) {
-    r = (float)piet::srgb_encode(a);
-  } else if constexpr (OP == OP_IEEE_SQRT) {
-    r = piet::ieee_sqrt(a);
+  constexpr int K = num_inputs(OP);
+  const int i = (blockIdx.x * ELEM_THREADS + threadIdx.x) * VEC;
+  if (i + VEC <= n) {
+    float4 x[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      x[k] = __ldcs(reinterpret_cast<const float4*>(in.p[k] + i));
+    float r[VEC];
+#pragma unroll
+    for (int c = 0; c < VEC; ++c) {
+      float v[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) v[k] = lane(x[k], c);
+      r[c] = num_op<OP>(v);
+    }
+    __stcs(reinterpret_cast<float4*>(out + i),
+           make_float4(r[0], r[1], r[2], r[3]));
   } else {
-    // a - b is an arithmetic result, as sat requires.
-    r = piet::sat(a - in.p[1][i]);
+    for (int j = i; j < n; ++j) {
+      float v[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) v[k] = in.p[k][j];
+      out[j] = num_op<OP>(v);
+    }
   }
-  out[i] = r;
 }
 
 // ---- probe_halfmix -----------------------------------------------------
@@ -298,36 +337,42 @@ __device__ __forceinline__ void stage_chunk(float4* buf,
     cp_async16(&buf[i], &src[(size_t)c * PIECES + i]);
 }
 
-// data: (n, 16) f32 entry rows; out: (ROWS, 128) f32, the state.  One
-// block of ROWS * 16 threads; thread (row, c0): 8 pixels of one row.
+// data: (n, 16) f32 entry rows, 16-byte aligned; out: (tiles, ROWS, 128)
+// f32, each tile's state; passes: (tiles,) int32, each tile's chain
+// updates, one per (entry pass, row).  One block a tile, ROWS * 16
+// threads; thread (row, c0): 8 pixels of one row.
 template <int ROWS, Delivery D>
 __global__ void __launch_bounds__(ROWS * ROW_THREADS)
 probe_delivery(const float* __restrict__ data, float* __restrict__ out,
-               int n, int reps) {
-  __shared__ __align__(16) float4 stage[2][CHUNK * ENTRY_WORDS / 4];
+               int* __restrict__ passes, int n, int reps) {
   const int row = threadIdx.x / ROW_THREADS;
   const float x0 = (float)((threadIdx.x % ROW_THREADS) * PX);
   const float Y = (float)row;
+  const float4* rows4 = reinterpret_cast<const float4*>(data);
   float st[PX];
 #pragma unroll
   for (int k = 0; k < PX; ++k) st[k] = STATE_INIT;
+  int count = 0;  // this thread's chain updates
 
   if constexpr (D == STAGED || D == BATCH8) {
-    const float4* src = reinterpret_cast<const float4*>(data);
+    __shared__ __align__(16) float4 stage[2][CHUNK * ENTRY_WORDS / 4];
     const int n_chunks = n / CHUNK;
     const int total = n_chunks * reps;
-    stage_chunk(stage[0], src, 0);
+    stage_chunk(stage[0], rows4, 0);
     cp_async_commit();
     for (int q = 0; q < total; ++q) {
-      if (q + 1 < total) stage_chunk(stage[(q + 1) & 1], src, (q + 1) % n_chunks);
+      if (q + 1 < total)
+        stage_chunk(stage[(q + 1) & 1], rows4, (q + 1) % n_chunks);
       cp_async_commit();
       cp_async_wait_one();
       __syncthreads();
-      const float* s = reinterpret_cast<const float*>(stage[q & 1]);
+      // Entry j's words 0-3 are float4 4j of the chunk: one broadcast.
+      const float4* s = stage[q & 1];
       if constexpr (D == STAGED) {
         for (int j = 0; j < CHUNK; ++j) {
-          const float* e = s + j * ENTRY_WORDS;
-          update(st, entry_terms(e[0], e[1], e[2], e[3]), x0, Y);
+          const float4 e = s[j * (ENTRY_WORDS / 4)];
+          update(st, entry_terms(e.x, e.y, e.z, e.w), x0, Y);
+          ++count;
         }
       } else {
         for (int j = 0; j < CHUNK; j += 8) {
@@ -336,9 +381,10 @@ probe_delivery(const float* __restrict__ data, float* __restrict__ out,
           for (int k = 0; k < PX; ++k) red[k] = STATE_INIT;
 #pragma unroll
           for (int m = 0; m < 8; ++m) {
-            const float* e = s + (j + m) * ENTRY_WORDS;
-            update(red, entry_terms(e[0], e[1], e[2], e[3]), x0, Y);
+            const float4 e = s[(j + m) * (ENTRY_WORDS / 4)];
+            update(red, entry_terms(e.x, e.y, e.z, e.w), x0, Y);
           }
+          count += 8;
 #pragma unroll
           for (int k = 0; k < PX; ++k) st[k] = piet::min_nan(st[k], red[k]);
         }
@@ -346,33 +392,47 @@ probe_delivery(const float* __restrict__ data, float* __restrict__ out,
       __syncthreads();
     }
   } else {
+    // Words 0-3 (sx, sy, ex, ey) and, where the variant reads them, words
+    // 4-7 (thr; the tag, the slot-1 tag): one 16-byte uniform load each,
+    // entry j + 1's issued before entry j's chain.
+    constexpr bool WIDE = D != GLOBAL;
+    float4 a = __ldg(rows4), b = make_float4(0.f, 0.f, 0.f, 0.f);
+    if constexpr (WIDE) b = __ldg(rows4 + 1);
     for (int r = 0; r < reps; ++r) {
       for (int j = 0; j < n; ++j) {
-        const float* e = data + (size_t)j * ENTRY_WORDS;
-        const float sx = __ldg(e), sy = __ldg(e + 1), ex = __ldg(e + 2),
-                    ey = __ldg(e + 3);
+        const int next = (j + 1 < n ? j + 1 : 0) * (ENTRY_WORDS / 4);
+        const float4 an = __ldg(rows4 + next);
+        float4 bn = b;
+        if constexpr (WIDE) bn = __ldg(rows4 + next + 1);
+        const float sx = a.x, sy = a.y, ex = a.z, ey = a.w;
         if constexpr (D == GLOBAL) {
           update(st, entry_terms(sx, sy, ex, ey), x0, Y);
+          ++count;
         } else if constexpr (D == WINDOW) {
           // The row window of the fine kernel's line_one: 8 rows from
           // rs when the line's band fits in them, else the whole tile.
-          const float thr = __ldg(e + 4);
+          const float thr = b.x;
           const float lo = piet::tmin(sy, ey) - thr;
           const float hi = piet::tmax(sy, ey) + thr;
           const int rs = min(max((int)floorf(lo), 0), ROWS - 8);
           const bool fits = ((int)ceilf(hi) - rs) <= 8;
-          if (!fits || (row >= rs && row < rs + 8))
+          if (!fits || (row >= rs && row < rs + 8)) {
             update(st, entry_terms(sx, sy, ex, ey), x0, Y);
+            ++count;
+          }
         } else {
           // The dispatch shape: a tag word, four class branches in the
           // tool's order (at most the first, second and last taken).
-          const int tag = (int)__ldg(e + 5);
-          if (tag == 3) update(st, entry_terms(sx, sy, ex, ey), x0, Y);
+          const int tag = (int)b.y;
+          if (tag == 3) {
+            update(st, entry_terms(sx, sy, ex, ey), x0, Y);
+            ++count;
+          }
           if (tag == 6) {
 #pragma unroll
             for (int k = 0; k < PX; ++k) st[k] = st[k] + sx;
           }
-          if (__ldg(e + 6) == 4.f) {
+          if (b.z == 4.f) {
 #pragma unroll
             for (int k = 0; k < PX; ++k) st[k] = piet::tmin(st[k], sy);
           }
@@ -381,37 +441,41 @@ probe_delivery(const float* __restrict__ data, float* __restrict__ out,
             for (int k = 0; k < PX; ++k) st[k] = st[k] * ex;
           }
         }
+        a = an;
+        b = bn;
       }
     }
   }
-  float* o = out + row * TILE_W + (threadIdx.x % ROW_THREADS) * PX;
+  float* o = out + ((size_t)blockIdx.x * ROWS + row) * TILE_W +
+             (threadIdx.x % ROW_THREADS) * PX;
 #pragma unroll
   for (int k = 0; k < PX; ++k) o[k] = st[k];
+
+  // The tile's count: per row the least of its 16 threads' counts (a
+  // thread that skipped an update lowers it), summed over the rows.
+#pragma unroll
+  for (int off = ROW_THREADS / 2; off > 0; off >>= 1)
+    count = min(count, __shfl_xor_sync(0xffffffffu, count, off));
+  __shared__ int tile_count;
+  if (threadIdx.x == 0) tile_count = 0;
+  __syncthreads();
+  if (threadIdx.x % ROW_THREADS == 0) atomicAdd(&tile_count, count);
+  __syncthreads();
+  if (threadIdx.x == 0) passes[blockIdx.x] = tile_count;
 }
 
 template <int ROWS, Delivery D>
-int launch_delivery(const float* data, float* out, int n, int reps,
-                    cudaStream_t stream) {
-  probe_delivery<ROWS, D><<<1, ROWS * ROW_THREADS, 0, stream>>>(data, out, n,
-                                                                reps);
+int launch_delivery(const float* data, float* out, int* passes, int n,
+                    int reps, int tiles, cudaStream_t stream) {
+  probe_delivery<ROWS, D><<<tiles, ROWS * ROW_THREADS, 0, stream>>>(
+      data, out, passes, n, reps);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// a, b, out: (n,) f32.
-extern "C" int piet_probe_div(const void* a, const void* b, void* out, int n,
-                              cudaStream_t stream) {
-  if (n <= 0) return 0;
-  probe_div<<<(n + ELEM_THREADS - 1) / ELEM_THREADS, ELEM_THREADS, 0,
-              stream>>>(static_cast<const float*>(a),
-                        static_cast<const float*>(b),
-                        static_cast<float*>(out), n);
-  return (int)cudaGetLastError();
-}
-
-// op: NumOp; in0..in4: (n,) f32 operands (those the op does not read may
-// be any pointer); out: (n,) f32.
+// op: NumOp; in0..in4: (n,) f32 operands, 16-byte aligned (those the op
+// does not read may be any pointer); out: (n,) f32, 16-byte aligned.
 extern "C" int piet_probe_numerics(int op, const void* in0, const void* in1,
                                    const void* in2, const void* in3,
                                    const void* in4, void* out, int n,
@@ -423,16 +487,21 @@ extern "C" int piet_probe_numerics(int op, const void* in0, const void* in1,
                       static_cast<const float*>(in3),
                       static_cast<const float*>(in4)}};
   float* o = static_cast<float*>(out);
-  const int grid = (n + ELEM_THREADS - 1) / ELEM_THREADS;
+  const int grid = (n + ELEM_THREADS * VEC - 1) / (ELEM_THREADS * VEC);
   switch (op) {
-    case OP_DIV: probe_numerics<OP_DIV><<<grid, ELEM_THREADS, 0, stream>>>(in, o, n); break;
-    case OP_SQRT: probe_numerics<OP_SQRT><<<grid, ELEM_THREADS, 0, stream>>>(in, o, n); break;
-    case OP_MULADD2: probe_numerics<OP_MULADD2><<<grid, ELEM_THREADS, 0, stream>>>(in, o, n); break;
-    case OP_LERP: probe_numerics<OP_LERP><<<grid, ELEM_THREADS, 0, stream>>>(in, o, n); break;
-    case OP_FILL_DELTA_CHAIN: probe_numerics<OP_FILL_DELTA_CHAIN><<<grid, ELEM_THREADS, 0, stream>>>(in, o, n); break;
-    case OP_SRGB_CHAIN: probe_numerics<OP_SRGB_CHAIN><<<grid, ELEM_THREADS, 0, stream>>>(in, o, n); break;
-    case OP_IEEE_SQRT: probe_numerics<OP_IEEE_SQRT><<<grid, ELEM_THREADS, 0, stream>>>(in, o, n); break;
-    case OP_SATURATE_SUB: probe_numerics<OP_SATURATE_SUB><<<grid, ELEM_THREADS, 0, stream>>>(in, o, n); break;
+#define PIET_NUM_CASE(OP)                                               \
+  case OP:                                                              \
+    probe_numerics<OP><<<grid, ELEM_THREADS, 0, stream>>>(in, o, n);    \
+    break;
+    PIET_NUM_CASE(OP_DIV)
+    PIET_NUM_CASE(OP_SQRT)
+    PIET_NUM_CASE(OP_MULADD2)
+    PIET_NUM_CASE(OP_LERP)
+    PIET_NUM_CASE(OP_FILL_DELTA_CHAIN)
+    PIET_NUM_CASE(OP_SRGB_CHAIN)
+    PIET_NUM_CASE(OP_IEEE_SQRT)
+    PIET_NUM_CASE(OP_SATURATE_SUB)
+#undef PIET_NUM_CASE
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
@@ -457,22 +526,29 @@ extern "C" int piet_probe_halfmix(const void* init, void* out, int kind,
   return (int)cudaGetLastError();
 }
 
-// variant: Variant; data: (n, 16) f32, 16-byte aligned, n a multiple of
-// 128 for the staged variants; out: (rows of the variant, 128) f32.
-extern "C" int piet_probe_delivery(const void* data, void* out, int variant,
-                                   int n, int reps, cudaStream_t stream) {
+// variant: Variant; data: (n, 16) f32, n >= 1, 16-byte aligned, n a
+// multiple of 128 for the staged variants; out: (tiles, rows of the
+// variant, 128) f32; passes: (tiles,) int32.
+extern "C" int piet_probe_delivery(const void* data, void* out, void* passes,
+                                   int variant, int n, int reps, int tiles,
+                                   cudaStream_t stream) {
+  if (tiles <= 0) return 0;
   const float* d = static_cast<const float*>(data);
   float* o = static_cast<float*>(out);
+  int* c = static_cast<int*>(passes);
   switch (variant) {
-    case V_SMEM: return launch_delivery<8, GLOBAL>(d, o, n, reps, stream);
-    case V_VMEM: return launch_delivery<8, STAGED>(d, o, n, reps, stream);
-    case V_BATCH8: return launch_delivery<8, BATCH8>(d, o, n, reps, stream);
-    case V_SMEM16: return launch_delivery<16, GLOBAL>(d, o, n, reps, stream);
-    case V_SMEM_WIN: return launch_delivery<16, WINDOW>(d, o, n, reps, stream);
-    case V_BATCH8_16: return launch_delivery<16, BATCH8>(d, o, n, reps, stream);
-    case V_SMEM32: return launch_delivery<32, GLOBAL>(d, o, n, reps, stream);
-    case V_SMEMW32: return launch_delivery<32, WINDOW>(d, o, n, reps, stream);
-    case V_DISP16: return launch_delivery<16, DISPATCH>(d, o, n, reps, stream);
+#define PIET_DELIVERY_CASE(V, ROWS, D) \
+  case V: return launch_delivery<ROWS, D>(d, o, c, n, reps, tiles, stream);
+    PIET_DELIVERY_CASE(V_SMEM, 8, GLOBAL)
+    PIET_DELIVERY_CASE(V_VMEM, 8, STAGED)
+    PIET_DELIVERY_CASE(V_BATCH8, 8, BATCH8)
+    PIET_DELIVERY_CASE(V_SMEM16, 16, GLOBAL)
+    PIET_DELIVERY_CASE(V_SMEM_WIN, 16, WINDOW)
+    PIET_DELIVERY_CASE(V_BATCH8_16, 16, BATCH8)
+    PIET_DELIVERY_CASE(V_SMEM32, 32, GLOBAL)
+    PIET_DELIVERY_CASE(V_SMEMW32, 32, WINDOW)
+    PIET_DELIVERY_CASE(V_DISP16, 16, DISPATCH)
+#undef PIET_DELIVERY_CASE
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -51,9 +51,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: Kernel D counts its paired instantiation ("fine_paired") apart from
 #: its run dispatch ("fine"), and expand.cu its pairing compaction
 #: ("expand_pairing", ``piet_compact_rows``) apart from the expansion
-#: ("expand"); the four kernels of ``csrc/probes.cu`` and the two of
+#: ("expand"); the three kernels of ``csrc/probes.cu`` and the two of
 #: ``csrc/mosaic_probe.cu`` (the tools', ``ops/probes.py``) count one
-#: each.
+#: each, and ``probe_numerics``' division op, launched for
+#: ``div_probe``, counts as "probe_div".
 LAUNCHES = {"candfuse": 0, "hitfuse": 0, "sort": 0, "fine": 0, "expand": 0,
             "keyed": 0, "gatherm": 0, "fine_dense": 0, "fine_paired": 0,
             "expand_pairing": 0, "probe_div": 0, "probe_numerics": 0,
@@ -79,10 +80,9 @@ _SIGNATURES = {
     "piet_gather_endpoints": [_P] * 5 + [_I] * 2 + [_P],
     "piet_gather_backdrop": [_P] * 4 + [_I, _P],
     "piet_fine_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "piet_probe_div": [_P, _P, _P, _I, _P],
     "piet_probe_numerics": [_I] + [_P] * 6 + [_I, _P],
     "piet_probe_halfmix": [_P, _P, _I, _I, _I, _I, _P],
-    "piet_probe_delivery": [_P, _P, _I, _I, _I, _P],
+    "piet_probe_delivery": [_P, _P, _P, _I, _I, _I, _I, _P],
     "piet_probe_mosaic": [_I, _P, _P, _I, _P],
     "piet_probe_dma16": [_P, _P, _I, _P],
 }

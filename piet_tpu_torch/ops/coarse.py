@@ -20,8 +20,10 @@ JAX pass's optional engines: the port always takes ``expand_rows``
 (ops/gatherm.py: the endpoint fetch and the backdrop, each one call), in
 both branches.  Where the packed sort key ``tile * 2*(NI+1) + item*2 +
 class`` would reach 2^24 (inexact in f32), the sort takes two keys,
-(tile, item*2 + class), as the JAX pass does.  Entry pairing is not
-ported: it raises ``NotImplementedError`` naming its ROADMAP.md item.
+(tile, item*2 + class), as the JAX pass does.  Entry pairing
+(``pair="compact"`` or ``"hole"``, ``PIET_PAIR`` in the renderer) runs
+``ops/pairing.py::pair_entries`` on the sorted entries, as the JAX pass
+does.
 
 Bit patterns: candidate rows, segment rows, the bail colour and the entry
 rows travel as int32.  Colours are NaN patterns as f32 and several words

@@ -1,16 +1,18 @@
 """The kernels of the numerics probes and microbenchmarks
 (``piet_tpu_torch/tools/``), each beside its plain PyTorch version.
 
-Four kernels of ``csrc/probes.cu``, one C entry point each:
+Three kernels of ``csrc/probes.cu``, one C entry point each:
 
-- :func:`probe_div`, elementwise ``a / b`` (replaces
-  ``tools/div_probe.py::mosaic_div``);
 - :func:`probe_numerics`, the eight fine-math ops of
-  ``tools/mosaic_numerics_probe.py`` (replaces its ``run_pallas``);
+  ``tools/mosaic_numerics_probe.py`` (replaces its ``run_pallas``), and
+  through :func:`probe_div` its division op, elementwise ``a / b``
+  (replaces ``tools/div_probe.py::mosaic_div``; counted apart as
+  "probe_div");
 - :func:`probe_halfmix`, the state chain of ``tools/half_experiment.py``
   in f32, bf16 and packed bf16x2 (replaces its ``run``);
 - :func:`probe_delivery`, the nine operand-delivery variants of
-  ``tools/arg_delivery_bench.py`` (replaces its ``run``);
+  ``tools/arg_delivery_bench.py`` (replaces its ``run``) over any number
+  of tiles, with each tile's count of chain updates;
 
 and two of ``csrc/mosaic_probe.cu``, the access-pattern probes of
 ``tools/mosaic_probe.py``:
@@ -34,31 +36,12 @@ from .cmd_math import ieee_sqrt, srgb_encode_u32
 
 F32 = torch.float32
 
-#: The launch counters of the six kernels (``kernels.LAUNCHES``); no
-#: frame runs them.
+#: The launch counters of the five kernels and of probe_numerics' division
+#: (``kernels.LAUNCHES``); no frame runs them.
 KERNELS = ("probe_div", "probe_numerics", "probe_halfmix", "probe_delivery",
            "probe_mosaic", "probe_dma16")
 
-# ---- probe_div -------------------------------------------------------
-
-
-def probe_div_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return a / b
-
-
-def probe_div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a / b, elementwise, of two same-shape f32 tensors."""
-    if not kernels.on_cuda(a, b):
-        return probe_div_plain(a, b)
-    kernels.check_cuda_tensor(a, F32, "a")
-    kernels.check_cuda_tensor(b, F32, "b", a.shape)
-    out = torch.empty_like(a)
-    kernels.launch("probe_div", "piet_probe_div", a.data_ptr(), b.data_ptr(),
-                   out.data_ptr(), a.numel())
-    return out
-
-
-# ---- probe_numerics ----------------------------------------------------
+# ---- probe_numerics, probe_div -------------------------------------------
 
 #: The tool's ops in its order (``mosaic_numerics_probe.OPS``; the
 #: kernel's ``NumOp``), each with its operand count.
@@ -98,23 +81,45 @@ def probe_numerics_plain(name: str, *ins: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"unknown op {name!r}")
 
 
+def _launch_numerics(counter: str, name: str, ins) -> torch.Tensor:
+    """The kernel's op ``name`` on CUDA operands; counted as ``counter``.
+    Each thread reads and writes 16 bytes at a time, so every operand
+    must be 16-byte aligned (the output, fresh, is)."""
+    for i, t in enumerate(ins):
+        kernels.check_cuda_tensor(t, F32, f"operand {i}", ins[0].shape)
+        if t.data_ptr() % 16:
+            raise ValueError(f"operand {i} must be 16-byte aligned")
+    out = torch.empty_like(ins[0])
+    ptrs = [t.data_ptr() for t in ins]
+    ptrs += [ptrs[0]] * (5 - len(ptrs))
+    kernels.launch(counter, "piet_probe_numerics",
+                   list(NUMERICS_OPS).index(name), *ptrs, out.data_ptr(),
+                   out.numel())
+    return out
+
+
 def probe_numerics(name: str, *ins: torch.Tensor) -> torch.Tensor:
     """The fine-math op ``name`` (:data:`NUMERICS_OPS`), elementwise, on
-    its same-shape f32 operands."""
+    its same-shape f32 operands (on the card: contiguous, 16-byte
+    aligned)."""
     if len(ins) != NUMERICS_OPS.get(name, -1):
         raise ValueError(f"op {name!r} takes {NUMERICS_OPS.get(name)} "
                          f"operands, got {len(ins)}")
     if not kernels.on_cuda(*ins):
         return probe_numerics_plain(name, *ins)
-    for i, t in enumerate(ins):
-        kernels.check_cuda_tensor(t, F32, f"operand {i}", ins[0].shape)
-    out = torch.empty_like(ins[0])
-    ptrs = [t.data_ptr() for t in ins]
-    ptrs += [ptrs[0]] * (5 - len(ptrs))
-    kernels.launch("probe_numerics", "piet_probe_numerics",
-                   list(NUMERICS_OPS).index(name), *ptrs, out.data_ptr(),
-                   out.numel())
-    return out
+    return _launch_numerics("probe_numerics", name, ins)
+
+
+def probe_div_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a / b
+
+
+def probe_div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a / b, elementwise, of two same-shape f32 tensors: probe_numerics'
+    division, counted as "probe_div"."""
+    if not kernels.on_cuda(a, b):
+        return probe_div_plain(a, b)
+    return _launch_numerics("probe_div", "div", (a, b))
 
 
 # ---- probe_halfmix -----------------------------------------------------
@@ -225,14 +230,14 @@ def window_rows(data: torch.Tensor, rows: int) -> torch.Tensor:
     return ~fits.view(-1, 1) | inside
 
 
-def probe_delivery_plain(data: torch.Tensor, variant: str,
-                         reps: int) -> torch.Tensor:
-    """Every variant but the dispatch one min-accumulates the field, and
-    a minimum of non-NaN values takes no order: the state is the minimum
-    of STATE_INIT and the field of every entry that reaches the pixel,
-    whatever the delivery and however often the stream repeats (reps > 0).
-    The dispatch variant's adds and multiplies run in the stream's order,
-    entry by entry."""
+def _delivery_state(data: torch.Tensor, variant: str,
+                    reps: int) -> torch.Tensor:
+    """One tile's (rows, 128) state.  Every variant but the dispatch one
+    min-accumulates the field, and a minimum of non-NaN values takes no
+    order: the state is the minimum of STATE_INIT and the field of every
+    entry that reaches the pixel, whatever the delivery and however often
+    the stream repeats (reps > 0).  The dispatch variant's adds and
+    multiplies run in the stream's order, entry by entry."""
     rows, how = DELIVERY_VARIANTS[variant]
     state = torch.full((rows, 128), STATE_INIT, dtype=F32,
                        device=data.device)
@@ -260,19 +265,43 @@ def probe_delivery_plain(data: torch.Tensor, variant: str,
     return state
 
 
-def probe_delivery(data: torch.Tensor, variant: str,
-                   reps: int) -> torch.Tensor:
+def delivery_passes(data: torch.Tensor, variant: str, reps: int) -> int:
+    """The (entry pass, tile row) chain updates that ``variant`` applies to
+    one tile: every row for every entry; the entries' window rows; the
+    rows of every tag-3 entry for the dispatch variant."""
+    rows, how = DELIVERY_VARIANTS[variant]
+    if how == "window":
+        return reps * int(window_rows(data, rows).sum())
+    if how == "dispatch":
+        return reps * rows * int((data[:, 5].to(torch.int32) == 3).sum())
+    return reps * rows * data.shape[0]
+
+
+def probe_delivery_plain(data: torch.Tensor, variant: str, reps: int,
+                         tiles: int = 1):
+    """Every tile has the same origin and stream: the one-tile state and
+    pass count, repeated."""
+    state = _delivery_state(data, variant, reps)
+    passes = torch.full((tiles,), delivery_passes(data, variant, reps),
+                        dtype=torch.int32, device=data.device)
+    return state.expand(tiles, *state.shape).clone(), passes
+
+
+def probe_delivery(data: torch.Tensor, variant: str, reps: int,
+                   tiles: int = 1):
     """The line_field_sq chain of every entry of ``data`` ((n, 16) f32
     rows: sx, sy, ex, ey, thr, tag, slot-1 tag, ...), ``reps`` times over
     the stream, min-accumulated into a (rows, 128) state from 1e18 as
-    ``variant`` (:data:`DELIVERY_VARIANTS`) delivers the operands.
-    Returns the state."""
+    ``variant`` (:data:`DELIVERY_VARIANTS`) delivers the operands, on
+    each of ``tiles`` tiles (the same tile, one block each on the card).
+    Returns the states, (tiles, rows, 128) f32, and each tile's count of
+    chain updates (:func:`delivery_passes`), (tiles,) int32."""
     if variant not in DELIVERY_VARIANTS:
         raise ValueError(f"unknown variant {variant!r}")
-    if data.ndim != 2 or data.shape[1] != 16:
+    if data.ndim != 2 or data.shape[1] != 16 or data.shape[0] < 1:
         raise ValueError(f"data shape {tuple(data.shape)}")
     if not kernels.on_cuda(data):
-        return probe_delivery_plain(data, variant, reps)
+        return probe_delivery_plain(data, variant, reps, tiles)
     rows, how = DELIVERY_VARIANTS[variant]
     n = data.shape[0]
     kernels.check_cuda_tensor(data, F32, "data")
@@ -281,18 +310,21 @@ def probe_delivery(data: torch.Tensor, variant: str,
                          f"{DELIVERY_CHUNK}")
     if data.data_ptr() % 16:
         raise ValueError("data must be 16-byte aligned")
-    out = torch.empty((rows, 128), dtype=F32, device=data.device)
+    out = torch.empty((tiles, rows, 128), dtype=F32, device=data.device)
+    passes = torch.empty((tiles,), dtype=torch.int32, device=data.device)
     kernels.launch("probe_delivery", "piet_probe_delivery", data.data_ptr(),
-                   out.data_ptr(), list(DELIVERY_VARIANTS).index(variant), n,
-                   reps)
-    return out
+                   out.data_ptr(), passes.data_ptr(),
+                   list(DELIVERY_VARIANTS).index(variant), n, reps, tiles)
+    return out, passes
 
 
-def delivery_ops(data: torch.Tensor, variant: str, reps: int) -> int:
-    """f32 operations that ``variant`` must do on this data: the chain at
-    every pixel an entry reaches and each entry's own terms; the dispatch
-    variant's adds and multiplies at every pixel where its tag takes
-    them.  The one-time state init and the stores are not counted."""
+def delivery_ops(data: torch.Tensor, variant: str, reps: int,
+                 tiles: int = 1) -> int:
+    """f32 operations that ``variant`` must do on this data over
+    ``tiles`` tiles: the chain at every pixel an entry reaches and each
+    entry's own terms; the dispatch variant's adds and multiplies at
+    every pixel where its tag takes them.  The one-time state init, the
+    stores and the pass count are not counted."""
     rows, how = DELIVERY_VARIANTS[variant]
     n = data.shape[0]
     px = rows * 128
@@ -308,7 +340,7 @@ def delivery_ops(data: torch.Tensor, variant: str, reps: int) -> int:
                    + int((tag >= 5).sum()) * px)
     else:
         per_rep = n * (px * CHAIN_OPS_PER_PIXEL + CHAIN_OPS_PER_ENTRY)
-    return per_rep * reps
+    return per_rep * reps * tiles
 
 
 # ---- probe_mosaic, probe_dma16 ------------------------------------------

@@ -6,7 +6,8 @@ with ``-prec-div=true`` (``kernels.NVCC_FLAGS``), so their quotients
 should be correctly rounded; this probe checks it one division at a time
 on the tool's operand mix (2^20 operands: generic f32s, near-integer
 ratios, tiny/huge magnitude pairs, exact-multiple pairs), through the
-``probe_div`` kernel (``csrc/probes.cu``).
+division op of the ``probe_numerics`` kernel (``csrc/probes.cu``),
+launched by ``probes.probe_div``.
 
 Prints three lines: kernel_vs_torch (the tool's mosaic_vs_xla),
 torch_vs_numpy, kernel_vs_numpy.

@@ -23,8 +23,9 @@ behind a GPU spin):
 
 Each run prints one JSON line; then each tree's registers and stack
 bytes of kernel D's four instantiations and fine_dense's four
-(``kernels.resource_usage`` on the tree's built library) and, per number,
-the two trees' means.  Exits 1 when no card is present.
+(``kernels.resource_usage`` on the tree's built library) and, per number
+(ms), each tree's mean and its two runs (``tools.ab_lines``).  Exits 1
+when no card is present.
 """
 
 from __future__ import annotations
@@ -32,7 +33,6 @@ from __future__ import annotations
 import json
 import os
 import re
-import statistics
 import subprocess
 import sys
 
@@ -122,10 +122,6 @@ def worker(root: str) -> None:
     print(json.dumps(measure(torch.device("cuda"))), flush=True)
 
 
-def _mean(v):
-    return statistics.fmean(v) if isinstance(v, list) else v
-
-
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--worker"]:
@@ -134,6 +130,7 @@ def main(argv=None) -> int:
     import torch
 
     from piet_tpu_torch import kernels
+    from piet_tpu_torch.tools import ab_lines, ab_runs
     if not torch.cuda.is_available():
         print("pairing_ab: no CUDA device", file=sys.stderr)
         return 1
@@ -145,31 +142,16 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True,
         text=True).stdout.strip(), flush=True)
-    runs = {0: [], 1: []}
-    for i in (0, 1, 1, 0):
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--worker",
-             roots[i]], capture_output=True, text=True, cwd=roots[i])
-        if proc.returncode != 0:
-            print(proc.stdout, proc.stderr, file=sys.stderr)
-            return 1
-        res = json.loads(proc.stdout.strip().splitlines()[-1])
-        runs[i].append(res)
-        print(f"run {'AB'[i]} {roots[i]}: {json.dumps(res)}", flush=True)
-    for i in (0, 1):
+    runs = ab_runs(os.path.abspath(__file__), dict(zip("AB", roots)))
+    if runs is None:
+        return 1
+    for t, rs in runs.items():
         for name, r in fine_resources(kernels.resource_usage(
-                runs[i][0]["library"])).items():
-            print(f"resources {'AB'[i]} {name}: registers {r['REG']}, "
+                rs[0]["library"])).items():
+            print(f"resources {t} {name}: registers {r['REG']}, "
                   f"stack {r['STACK']} B, local {r.get('LOCAL', 0)} B, "
                   f"shared {r['SHARED']} B", flush=True)
-    for key in runs[0][0]:
-        if key == "library":
-            continue
-        a = [_mean(r[key]) for r in runs[0]]
-        b = [_mean(r[key]) for r in runs[1]]
-        print(f"ab {key}: A {statistics.fmean(a):.4f} ms ({a[0]:.4f}, "
-              f"{a[1]:.4f}), B {statistics.fmean(b):.4f} ms ({b[0]:.4f}, "
-              f"{b[1]:.4f})", flush=True)
+    print("\n".join(ab_lines(runs)), flush=True)
     return 0
 
 

@@ -1254,17 +1254,56 @@ def test_cuda_sharded_frame_on_two_cards(fine_impl):
 
 @pytest.mark.cuda
 def test_cuda_probe_div_equals_plain_and_numpy():
-    """On the tool's 2^20 operands: bitwise torch's division and numpy's
-    IEEE quotient (-prec-div=true)."""
+    """probe_numerics' division op, launched by probe_div and counted as
+    "probe_div", on the tool's 2^20 operands and on a ragged cut of them
+    (1027 words: the last thread's 3 words one by one): bitwise torch's
+    division and numpy's IEEE quotient (-prec-div=true)."""
     _needs_cuda()
     from piet_tpu_torch.tools import div_probe
     a, b = div_probe.operands()
-    at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
-    kernels.reset_launches()
-    got = probes.probe_div(at, bt)
-    assert kernels.LAUNCHES["probe_div"] == 1
-    assert _same_bits(got, probes.probe_div_plain(at, bt))
-    assert _same_bits(got.cpu(), torch.from_numpy(a / b))
+    for n in (a.size, 1027):
+        an, bn = a.reshape(-1)[:n].copy(), b.reshape(-1)[:n].copy()
+        at, bt = torch.from_numpy(an).cuda(), torch.from_numpy(bn).cuda()
+        kernels.reset_launches()
+        got = probes.probe_div(at, bt)
+        assert kernels.LAUNCHES["probe_div"] == 1
+        assert kernels.LAUNCHES["probe_numerics"] == 0
+        assert _same_bits(got, probes.probe_div_plain(at, bt))
+        assert _same_bits(got, probes.probe_numerics("div", at, bt))
+        assert _same_bits(got.cpu(), torch.from_numpy(an / bn))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(probes.NUMERICS_OPS))
+def test_cuda_probe_numerics_ragged_tail(name):
+    """Each op on 1027 and 3 words of the tool's (16, 128) inputs: the
+    words past the last multiple of 4 taken one by one, bitwise the plain
+    version."""
+    _needs_cuda()
+    from piet_tpu_torch.tools import mosaic_numerics_probe as mnp
+    batches = mnp.inputs([name])[name, (16, 128)]
+    for n in (1027, 3):
+        ins = [torch.from_numpy(np.stack(c)).reshape(-1)[:n].clone().cuda()
+               for c in zip(*batches)]
+        assert _same_bits(probes.probe_numerics(name, *ins),
+                          probes.probe_numerics_plain(name, *ins)), n
+
+
+@pytest.mark.cuda
+def test_cuda_probes_raise_on_misaligned_operands():
+    """The 16-byte loads need 16-byte aligned operands: a view one word
+    into its storage raises ValueError, and nothing falls back."""
+    _needs_cuda()
+    x = torch.rand(2 * 1024 + 16, device="cuda")
+    a, b = x[1:1025], x[1025:2049]
+    assert a.data_ptr() % 16 == 4
+    with pytest.raises(ValueError, match="aligned"):
+        probes.probe_div(a, x[:1024])
+    with pytest.raises(ValueError, match="aligned"):
+        probes.probe_numerics("lerp", x[:1024], b, x[1024:2048])
+    d = torch.rand(257 * 16, device="cuda")[1:1 + 256 * 16].view(256, 16)
+    with pytest.raises(ValueError, match="aligned"):
+        probes.probe_delivery(d, "smem", 1)
 
 
 @pytest.mark.cuda
@@ -1296,19 +1335,29 @@ def test_cuda_probe_halfmix_equals_plain(kind, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tiles", [1, 3])
 @pytest.mark.parametrize("variant", list(probes.DELIVERY_VARIANTS))
-def test_cuda_probe_delivery_equals_plain(variant):
-    """256 entries of the tool's stream, 2 passes; the dispatch variant
-    also on its first 87 entries, whose last is a tag-3 entry (the
-    state ends finite)."""
+def test_cuda_probe_delivery_equals_plain(variant, tiles):
+    """256 entries of the tool's stream and of a mixed one (windows that
+    fit, tag-3 entries), 2 passes; the dispatch variant also on the tool
+    stream's first 87 entries, whose last is a tag-3 entry (the state
+    ends finite).  Every tile's state bitwise the plain version and its
+    count of chain updates delivery_passes'."""
     _needs_cuda()
     from piet_tpu_torch.tools import arg_delivery_bench
     d = arg_delivery_bench.data(256, device="cuda")
-    cases = [d] + ([d[:87].clone()] if variant == "disp16" else [])
+    cases = [d, arg_delivery_bench.mixed_data(256, "cuda")]
+    if variant == "disp16":
+        cases.append(d[:87].clone())
     for x in cases:
-        got = probes.probe_delivery(x, variant, 2)
-        assert _same_bits(got, probes.probe_delivery_plain(x, variant, 2))
-    assert torch.isfinite(got).all()
+        got, passes = probes.probe_delivery(x, variant, 2, tiles)
+        want, want_passes = probes.probe_delivery_plain(x, variant, 2, tiles)
+        assert got.shape == want.shape == (tiles,) + want.shape[1:]
+        assert _same_bits(got, want)
+        assert passes.tolist() == want_passes.tolist() == (
+            [probes.delivery_passes(x, variant, 2)] * tiles)
+        if variant != "disp16" or x is not d:
+            assert torch.isfinite(got).all()
 
 
 # ---- the access-pattern probes (csrc/mosaic_probe.cu) ---------------------

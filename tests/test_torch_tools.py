@@ -90,6 +90,22 @@ def test_div_plain_equals_pallas_kernel_and_numpy():
         "kernel_vs_torch", "torch_vs_numpy", "kernel_vs_numpy")]
 
 
+@pytest.mark.parametrize("n", [1 << 14, 1027])
+def test_div_is_the_numerics_division(n):
+    """probe_div is probe_numerics' division op: on CPU tensors bitwise
+    the op's plain version, numpy's quotient and the tool's kernel
+    (interpret mode), on the first n words of the tool's operand mix
+    (1027: a ragged length, 3 words past a multiple of 4)."""
+    tool = _tool("div_probe")
+    a, b = (x.reshape(-1)[:n].copy() for x in div_probe.operands(1 << 14))
+    at, bt = torch.from_numpy(a), torch.from_numpy(b)
+    got = probes.probe_div(at, bt).numpy()
+    _assert_bits(got, probes.probe_numerics_plain("div", at, bt).numpy())
+    _assert_bits(got, probes.probe_numerics("div", at, bt).numpy())
+    _assert_bits(got, a / b)
+    _assert_bits(got, _interpret(tool._kernel, a.shape, 2)(a, b))
+
+
 # ---- numerics ------------------------------------------------------------
 
 def _contraction_bound(name, ins, want):
@@ -258,6 +274,7 @@ _N = {"disp16": 87}
 REPS = 2
 
 
+@functools.lru_cache(maxsize=None)
 def _tool_delivery(variant, n):
     """The tool's kernel with its N and REPS patched to n and REPS, in
     interpret mode, as its ``run`` calls it; rows 0-7 of the state."""
@@ -285,23 +302,81 @@ def _tool_delivery(variant, n):
         tool.N, tool.REPS = saved
 
 
+@pytest.mark.parametrize("tiles", [1, 3])
 @pytest.mark.parametrize("variant", list(probes.DELIVERY_VARIANTS))
-def test_delivery_variant_equals_tool_kernel(variant):
+def test_delivery_variant_equals_tool_kernel(variant, tiles):
     """Each variant's plain version against the tool's kernel (N, REPS
-    patched small) in interpret mode: rows 0-7 within 2^-10, relative
-    and absolute.  XLA:CPU contracts the chain's products into FMAs
-    there (measured: <= 3.1e-5 absolute, 5.3e-5 relative, on 323 of the
-    1,024 words at N = 64); the chain's own order is held bitwise
-    against the tool's ``_chain`` run eagerly
-    (test_delivery_field_equals_tool_chain)."""
+    patched small) in interpret mode: rows 0-7 of every tile within
+    2^-10, relative and absolute.  XLA:CPU contracts the chain's products
+    into FMAs there (measured: <= 3.1e-5 absolute, 5.3e-5 relative, on
+    323 of the 1,024 words at N = 64); the chain's own order is held
+    bitwise against the tool's ``_chain`` run eagerly
+    (test_delivery_field_equals_tool_chain).  Every tile is the one-tile
+    state, bitwise, with the one-tile pass count."""
     n = _N.get(variant, 64)
     want = _tool_delivery(variant, n)
     d = arg_delivery_bench.data(n, device="cpu")
-    got = probes.probe_delivery(d, variant, REPS).numpy()
+    got, passes = probes.probe_delivery(d, variant, REPS, tiles)
+    one, one_passes = probes.probe_delivery(d, variant, REPS)
     rows = probes.DELIVERY_VARIANTS[variant][0]
-    assert got.shape == (rows, 128)
-    assert np.isfinite(got).all() and np.isfinite(want).all()
-    np.testing.assert_allclose(got[:8], want, rtol=2 ** -10, atol=2 ** -10)
+    assert got.shape == (tiles, rows, 128) and one.shape == (1, rows, 128)
+    assert passes.dtype == torch.int32 and passes.shape == (tiles,)
+    assert (passes == one_passes[0]).all()
+    assert int(one_passes[0]) == probes.delivery_passes(d, variant, REPS)
+    assert np.isfinite(want).all()
+    for tile in got.numpy():
+        _assert_bits(tile, one[0].numpy())
+        assert np.isfinite(tile).all()
+        np.testing.assert_allclose(tile[:8], want, rtol=2 ** -10,
+                                   atol=2 ** -10)
+
+
+def _recount_passes(x: np.ndarray, variant: str, reps: int) -> int:
+    """The tool's loop structure in numpy, counting one per (entry pass,
+    row) chain update: every row of the tile (rows of 8-entry groups for
+    batch8), the rows of the window (``pl.ds(rs, WH)`` where the band
+    fits, else all), the tile's rows where the tag is 3."""
+    rows, how = probes.DELIVERY_VARIANTS[variant]
+    count = 0
+    for _ in range(reps):
+        if how == "batch8":
+            for j in range(0, x.shape[0], 8):
+                count += rows * len(x[j:j + 8])
+            continue
+        for e in x:
+            if how == "window":
+                sy, ey, thr = np.float32(e[1]), np.float32(e[3]), e[4]
+                lo = np.float32(min(sy, ey) - thr)
+                hi = np.float32(max(sy, ey) + thr)
+                rs = min(max(int(np.floor(lo)), 0), rows - 8)
+                count += 8 if int(np.ceil(hi)) - rs <= 8 else rows
+            elif how == "dispatch":
+                count += rows if int(e[5]) == 3 else 0
+            else:
+                count += rows
+    return count
+
+
+@pytest.mark.parametrize("variant", list(probes.DELIVERY_VARIANTS))
+def test_delivery_passes_recount_the_tool_loops(variant):
+    """delivery_passes, and every tile's count of the plain version,
+    against a numpy recount of the tool's loops on 256 entries of a
+    mixed stream, 3 passes: the windows both fit and miss there, and the
+    dispatch variant takes the chain on some entries and not others."""
+    d = arg_delivery_bench.mixed_data(256, "cpu")
+    want = _recount_passes(d.numpy(), variant, 3)
+    rows, how = probes.DELIVERY_VARIANTS[variant]
+    full = 3 * 256 * rows
+    if how == "window":
+        assert 3 * 256 * 8 < want < full
+    elif how == "dispatch":
+        assert 0 < want < full
+    else:
+        assert want == full
+    assert probes.delivery_passes(d, variant, 3) == want
+    _, passes = probes.probe_delivery(d, variant, 3, tiles=2)
+    assert passes.tolist() == [want, want]
+    assert probes.delivery_passes(d, variant, 0) == 0
 
 
 def test_delivery_field_equals_tool_chain():
@@ -317,13 +392,14 @@ def test_delivery_field_equals_tool_chain():
     st = jnp.full((32, 128), 1e18, jnp.float32)
     for j in range(x.shape[0]):
         st = tool._chain(*(jnp.float32(v) for v in x[j, :4]), X, Y, st)
-    got = probes.probe_delivery(d, "smem32", 1).numpy()
-    _assert_bits(got, st)
+    got, _ = probes.probe_delivery(d, "smem32", 1)
+    _assert_bits(got[0].numpy(), st)
 
 
 def test_delivery_ops_count_the_data():
     """The bound's operation count: every pixel for the full-tile
-    variants; the window's rows; the dispatch's taken branches."""
+    variants; the window's rows; the dispatch's taken branches; over
+    many tiles, the tiles times the one tile's count."""
     d = arg_delivery_bench.data(64, device="cpu")
     px = probes.CHAIN_OPS_PER_PIXEL
     ent = probes.CHAIN_OPS_PER_ENTRY
@@ -336,6 +412,43 @@ def test_delivery_ops_count_the_data():
                   int((tag >= 5).sum()))
     assert probes.delivery_ops(d, "disp16", 1) == (
         n3 * (16 * 128 * px + ent) + (n6 + n5) * 16 * 128)
+    for v in probes.DELIVERY_VARIANTS:
+        assert probes.delivery_ops(d, v, 2, tiles=676) == (
+            676 * probes.delivery_ops(d, v, 2))
+
+
+def test_ab_runs_in_a_palindrome_and_lines(tmp_path):
+    """The A/B tools' runner (pairing_ab, probes_ab): every tree's worker
+    in its own process from its root, in the order A B C C B A, each
+    run's last JSON line kept; then one line a number with each tree's
+    mean and runs (a list within a run taken as its mean; "library"
+    skipped; a number only some trees have, only those)."""
+    from piet_tpu_torch.tools import ab_lines, ab_runs
+    script = tmp_path / "worker.py"
+    log = tmp_path / "order.txt"
+    script.write_text(
+        "import json, os, sys\n"
+        f"open({str(log)!r}, 'a').write(os.path.basename(os.getcwd()))\n"
+        "root = os.path.basename(sys.argv[2])\n"
+        "n = len(open(" + repr(str(log)) + ").read())\n"
+        "out = {'library': 'x', 'ms': [n, n + 1]}\n"
+        "if root != 'C':\n"
+        "    out['only AB'] = 2.0\n"
+        "print('noise')\n"
+        "print(json.dumps(out))\n")
+    trees = {}
+    for t in "ABC":
+        (tmp_path / t).mkdir()
+        trees[t] = str(tmp_path / t)
+    runs = ab_runs(str(script), trees)
+    assert log.read_text() == "ABCCBA"
+    assert [r["ms"] for r in runs["A"]] == [[1, 2], [6, 7]]
+    assert ab_lines(runs) == [
+        "ab ms: A 4.0000 (1.5000, 6.5000), B 4.0000 (2.5000, 5.5000), "
+        "C 4.0000 (3.5000, 4.5000)",
+        "ab only AB: A 2.0000 (2.0000, 2.0000), B 2.0000 (2.0000, 2.0000)"]
+    (tmp_path / "bad.py").write_text("raise SystemExit(3)\n")
+    assert ab_runs(str(tmp_path / "bad.py"), trees) is None
 
 
 # ---- fine_entry_bench ----------------------------------------------------
