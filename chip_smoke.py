@@ -165,12 +165,14 @@ and exits non-zero:
      against CPU, each kernel alone; one process a setting),
      dispatch_probe and precompile_cache, each through its ``main``,
      lines printed after the card's nvidia-smi line, the launch counters
-     reset before and read after (probe_mosaic 22 probes x 2 fills or
-     more, probe_dma16 2 or more); then all 23 probes kernel against
-     plain at both fills, on the card and against the CPU (0 words off),
-     engine_probe's leaves and bisect at 0 words off, the gradient demo
-     0 pixels off the oracle, and the two probe kernels timed beside
-     their plain versions and their bound by bytes;
+     reset before and read after (mosaic_probe's run: one probe_mosaic
+     launch for its 22 probes x 2 fills, 2 of probe_dma16); then the
+     batched launch's 22 x 2 outputs and all 23 probes one launch each
+     kernel against plain at both fills, on the card and against the
+     CPU (0 words off), engine_probe's leaves and bisect at 0 words off,
+     the gradient demo 0 pixels off the oracle, and the two probe
+     kernels timed beside their plain versions and their bound by bytes
+     (the batch beside the 22 probes one launch each);
   10. the benchmark (``piet_tpu_torch.bench``, the port of the JAX
      package's root bench.py): its ``main`` in process on the default
      route and with ``--fine-impl entries``, the launch counters reset
@@ -2353,14 +2355,16 @@ DIAG_TOOLS = (("mosaic_probe", []), ("grad_exact_probe", []),
 
 def phase_diag_tools(card, dev) -> dict:
     """Phase 9: the rest of the tools as a user runs them (``main``), the
-    launch counters reset before and read after (probe_mosaic at least 22
-    probes x 2 fills, probe_dma16 at least 2); then all 23 probes of
-    mosaic_probe, kernel against plain, at both fills (0 words off, on
-    the card and against the plain version on the CPU), engine_probe's
-    leaves and every kernel of its bisect at 0 words off, the gradient
-    demo at 0 pixels off the oracle; and both probe kernels timed, every
-    probe in turn, beside the plain versions and the bound by bytes.
-    Returns the kernel table's rows."""
+    launch counters reset before and read after (mosaic_probe's default
+    run: one probe_mosaic launch for its 22 probes at both fills, and
+    probe_dma16 once a fill); then the batch of all 22 probes at both
+    fills and all 23 probes one launch each, kernel against plain (0
+    words off, on the card and against the plain version on the CPU),
+    engine_probe's leaves and every kernel of its bisect at 0 words off,
+    the gradient demo at 0 pixels off the oracle; and both probe kernels
+    timed beside the plain versions and the bound by bytes (the batch
+    beside the 22 probes in turn, one launch each).  Returns the kernel
+    table's rows."""
     import contextlib
     import importlib
     import io
@@ -2390,9 +2394,8 @@ def phase_diag_tools(card, dev) -> dict:
     launches = {k: kernels.LAUNCHES[k] for k in MOSAIC_KERNELS}
     print(f"launches phase 9 (the rest of the tools): {launches}",
           flush=True)
-    n_mosaic = len(probes.MOSAIC_PROBES)
-    assert launches["probe_mosaic"] >= n_mosaic * len(probes.FILLS)
-    assert launches["probe_dma16"] >= len(probes.FILLS)
+    assert launches == {"probe_mosaic": 1,
+                        "probe_dma16": len(probes.FILLS)}, launches
     assert out["mosaic_probe"] == [f"{n}: OK" for n in mosaic_probe.PROBES]
     verdict = json.loads(out["engine_probe"][-1])
     assert verdict["engines_bit_identical"] is True, verdict
@@ -2400,18 +2403,33 @@ def phase_diag_tools(card, dev) -> dict:
                                      verdict["bisect"].values()), verdict
     assert "[full demo] mismatched px: 0" in out["grad_exact_probe"]
 
-    # Every probe, kernel against plain at both fills: on the card, and
-    # against the plain version on the CPU (the NaN words included).
+    # Kernel against plain at both fills, on the card and against the
+    # plain version on the CPU (the NaN words included): the batch of all
+    # 22 probes, then every probe one launch each.
+    names = list(probes.MOSAIC_PROBES)
     xs = {n: torch.from_numpy(mosaic_probe.probe_input(n)).to(dev)
           for n in mosaic_probe.PROBES}
+    x = xs[names[0]]
     checks = {k: [] for k in MOSAIC_KERNELS}
-    for n, x in xs.items():
+    got = probes.probe_mosaic_batch(names, x)
+    torch.cuda.synchronize()
+    want = probes.probe_mosaic_batch_plain(names, x)
+    want_cpu = probes.probe_mosaic_batch_plain(names, x.cpu())
+    for f, fill in enumerate(probes.FILLS):
+        for j, n in enumerate(names):
+            res = [bitwise(got[f, j], want[f, j]),
+                   bitwise(got[f, j].cpu(), want_cpu[f, j])]
+            checks["probe_mosaic"] += res
+            print(f"probe {n} fill {fill:#010x}, batched: {res[0][0]} "
+                  f"words off the plain version on the card, {res[1][0]} "
+                  f"on the CPU", flush=True)
+    for n, xn in xs.items():
         k = "probe_dma16" if n == "dma_16lane" else "probe_mosaic"
         for fill in probes.FILLS:
-            got = mosaic_probe.run(n, x, fill)
+            got = mosaic_probe.run(n, xn, fill)
             torch.cuda.synchronize()
-            res = [bitwise(got, mosaic_probe.run_plain(n, x, fill)),
-                   bitwise(got.cpu(), mosaic_probe.run_plain(n, x.cpu(),
+            res = [bitwise(got, mosaic_probe.run_plain(n, xn, fill)),
+                   bitwise(got.cpu(), mosaic_probe.run_plain(n, xn.cpu(),
                                                              fill))]
             checks[k] += res
             print(f"probe {n} fill {fill:#010x}: {res[0][0]} words off the "
@@ -2432,25 +2450,31 @@ def phase_diag_tools(card, dev) -> dict:
                           "mosaic_probe's main, every probe at both fills",
                           launches=launches[name], library_ms=None)
 
-    # Timed: every probe in turn (one launch each), and the DMA probe.
-    # Bytes: the input read once and the output written once a probe; the
-    # DMA probe reads the 896 rows its four copies reach.
-    names = list(probes.MOSAIC_PROBES)
+    # Timed: the batch as the tool launches it (22 probes x 2 fills) and
+    # at one fill, beside the 22 probes in turn, one launch each; and the
+    # DMA probe.  Bytes: the input read once and every output written
+    # once; the DMA probe reads the 896 rows its four copies reach.
     nan = probes.FILL_NAN
-    per = {}
-    for n in names:
-        per[n] = time_ms(lambda n=n: probes.probe_mosaic(n, xs[n], nan),
-                         reps=50, warm=2)
+    per = {n: time_ms(lambda n=n: probes.probe_mosaic(n, x, nan), reps=50,
+                      warm=2) for n in names}
     print("timing probe_mosaic per probe [" + card + "]: " + ", ".join(
         f"{n} {ms:.4f}" for n, ms in per.items()) + " ms", flush=True)
-    io_bytes = (16 * 128 + 8 * 128) * 4
+    one_fill = time_ms(lambda: probes.probe_mosaic_batch(names, x, (nan,)),
+                       reps=50, warm=2)
+    # 5 reps: the host enqueues the 110 launches within the spin.
+    in_turn = time_ms(lambda: [probes.probe_mosaic(n, x, nan)
+                               for n in names], reps=5, warm=2)
+    print(f"timing probe_mosaic [{card}]: the {len(names)} probes at one "
+          f"fill in one launch {one_fill:.4f} ms, in turn, one launch "
+          f"each, {in_turn:.4f} ms", flush=True)
+    n_runs = len(names) * len(probes.FILLS)
     xd = xs["dma_16lane"]
     rows["probe_mosaic"].update(
-        time=lambda: [probes.probe_mosaic(n, xs[n], nan) for n in names],
-        time_plain=lambda: [probes.probe_mosaic_plain(n, xs[n], nan)
-                            for n in names],
-        bytes=io_bytes * len(names),
-        timed=f"the {len(names)} probes in turn, one launch each")
+        time=lambda: probes.probe_mosaic_batch(names, x),
+        time_plain=lambda: probes.probe_mosaic_batch_plain(names, x),
+        bytes=(16 * 128 + n_runs * 8 * 128) * 4,
+        timed=f"the {len(names)} probes x {len(probes.FILLS)} fills in one "
+              "launch, as mosaic_probe runs them")
     rows["probe_dma16"].update(
         time=lambda: probes.probe_dma16(xd, nan),
         time_plain=lambda: probes.probe_dma16_plain(xd, nan),

@@ -83,8 +83,8 @@ _SIGNATURES = {
     "piet_probe_numerics": [_I] + [_P] * 6 + [_I, _P],
     "piet_probe_halfmix": [_P, _P, _I, _I, _I, _I, _P],
     "piet_probe_delivery": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "piet_probe_mosaic": [_I, _P, _P, _I, _P],
-    "piet_probe_dma16": [_P, _P, _I, _P],
+    "piet_probe_mosaic": [_P, _P, _I, _I, _I, _I, _P],
+    "piet_probe_dma16": [_P, _P, _P],
 }
 
 _LIB = None

@@ -17,7 +17,9 @@ Three kernels of ``csrc/probes.cu``, one C entry point each:
 and two of ``csrc/mosaic_probe.cu``, the access-pattern probes of
 ``tools/mosaic_probe.py``:
 
-- :func:`probe_mosaic`, its 22 one-kernel probes (replaces ``_compile``);
+- :func:`probe_mosaic_batch`, any of its 22 one-kernel probes at one or
+  both fills in one launch, and :func:`probe_mosaic`, one probe at one
+  fill (replace ``_compile``);
 - :func:`probe_dma16`, its async copy of 16-lane rows into scratch
   (replaces ``_compile_dma16`` and ``_dma16_kernel``).
 
@@ -367,10 +369,10 @@ MOSAIC_IN, MOSAIC_OUT, MOSAIC_STEPS = (16, 128), (8, 128), 4
 #: ``uninitialized_memory="zero"``.
 FILL_NAN = 0x7FC00000
 FILLS = (FILL_NAN, 0)
-#: probe_dma16's scratch, the slot its copies fill, the rows a copy
-#: moves and the rows between two steps' copies; its input must hold the
-#: rows that step 3's copy reaches.
-DMA16_SCRATCH, DMA16_SLOT, DMA16_ROWS, DMA16_STRIDE = (4, 512, 16), 1, 512, 128
+#: probe_dma16's rows a copy moves (into slot 1 of the tool's (4, 512,
+#: 16) scratch) and the rows between two steps' copies; its input must
+#: hold the rows that step 3's copy reaches.
+DMA16_ROWS, DMA16_STRIDE = 512, 128
 DMA16_MIN_ROWS = (MOSAIC_STEPS - 1) * DMA16_STRIDE + DMA16_ROWS
 #: The CPU's NaN for an invalid op on non-NaN operands.
 _CPU_DEFAULT_NAN = -0x400000  # 0xffc00000 as int32
@@ -495,37 +497,75 @@ def probe_mosaic_plain(name: str, x: torch.Tensor,
     return out.contiguous()
 
 
+def probe_mosaic_batch_plain(names, x: torch.Tensor,
+                             fills=FILLS) -> torch.Tensor:
+    return torch.stack([torch.stack([probe_mosaic_plain(n, x, f)
+                                     for n in names]) for f in fills])
+
+
+_MOSAIC_INDEX = {n: p for p, n in enumerate(MOSAIC_PROBES)}
+
+
+def _mosaic_mask(names, fills) -> int:
+    """The kernel's probe mask: bit p for probe p of
+    :data:`MOSAIC_PROBES`; ``names`` distinct and in that order."""
+    for n in names:
+        if n not in _MOSAIC_INDEX:
+            raise ValueError(f"unknown probe {n!r}")
+    idx = [_MOSAIC_INDEX[n] for n in names]
+    if not idx or idx != sorted(set(idx)):
+        raise ValueError(f"probes {list(names)}: expected one or more "
+                         "distinct probes in the tool's order")
+    if len(fills) not in (1, 2):
+        raise ValueError(f"fills {fills}: expected one or two words")
+    return sum(1 << p for p in idx)
+
+
+def probe_mosaic_batch(names, x: torch.Tensor, fills=FILLS) -> torch.Tensor:
+    """Probes ``names`` (distinct, in :data:`MOSAIC_PROBES` order) on the
+    (16, 128) f32 input ``x``, each at every word of ``fills`` (one or
+    two), in one launch: (len(fills), len(names), 8, 128) f32, the output
+    step 3 of each left, its four steps run in order over scratch that
+    starts as the fill word."""
+    mask = _mosaic_mask(names, fills)
+    if not kernels.on_cuda(x):
+        return probe_mosaic_batch_plain(names, x, fills)
+    kernels.check_cuda_tensor(x, F32, "x", MOSAIC_IN)
+    if x.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned")
+    out = torch.empty((len(fills), len(names)) + MOSAIC_OUT, dtype=F32,
+                      device=x.device)
+    kernels.launch("probe_mosaic", "piet_probe_mosaic", x.data_ptr(),
+                   out.data_ptr(), mask, len(fills), _word(fills[0]),
+                   _word(fills[-1]))
+    return out
+
+
 def probe_mosaic(name: str, x: torch.Tensor,
                  fill: int = FILL_NAN) -> torch.Tensor:
     """Probe ``name`` (:data:`MOSAIC_PROBES`) on the (16, 128) f32 input
     ``x``: its four steps in order over scratch that starts as the 32-bit
-    word ``fill``; returns the (8, 128) f32 output step 3 left."""
-    if name not in MOSAIC_PROBES:
-        raise ValueError(f"unknown probe {name!r}")
-    if not kernels.on_cuda(x):
-        return probe_mosaic_plain(name, x, fill)
-    kernels.check_cuda_tensor(x, F32, "x", MOSAIC_IN)
-    out = torch.empty(MOSAIC_OUT, dtype=F32, device=x.device)
-    kernels.launch("probe_mosaic", "piet_probe_mosaic",
-                   list(MOSAIC_PROBES).index(name), x.data_ptr(),
-                   out.data_ptr(), _word(fill))
-    return out
+    word ``fill``; returns the (8, 128) f32 output step 3 left.  One
+    launch of :func:`probe_mosaic_batch`'s kernel."""
+    return probe_mosaic_batch([name], x, (fill,)).view(MOSAIC_OUT)
 
 
 def probe_dma16_plain(x: torch.Tensor, fill: int = FILL_NAN) -> torch.Tensor:
-    t = _filled(DMA16_SCRATCH, fill, x.device)
+    """``fill`` is not read: each step's copy fills the slot before the
+    step reads it, and no other slot is touched."""
     for i in range(MOSAIC_STEPS):
         r0 = i * DMA16_STRIDE
-        t[DMA16_SLOT] = x[r0:r0 + DMA16_ROWS]
-        out = _splat(t[DMA16_SLOT, i:i + 1, 3:4])
+        slot = x[r0:r0 + DMA16_ROWS]
+        out = _splat(slot[i:i + 1, 3:4])
     return out.contiguous()
 
 
 def probe_dma16(x: torch.Tensor, fill: int = FILL_NAN) -> torch.Tensor:
     """The dma_16lane probe on ``x`` ((>= 896, 16) f32, 16-byte aligned):
     at step i, rows 128 i .. 128 i + 511 copied into slot 1 of a (4, 512,
-    16) scratch that starts as ``fill``, then t[1, i, 3] splat into the
-    (8, 128) f32 output; returns what step 3 left."""
+    16) scratch, then t[1, i, 3] splat into the (8, 128) f32 output;
+    returns what step 3 left.  ``fill``, the scratch's word before step
+    0 in the tool, cannot show: no word is read before a copy wrote it."""
     if x.ndim != 2 or x.shape[1] != 16 or x.shape[0] < DMA16_MIN_ROWS:
         raise ValueError(f"x shape {tuple(x.shape)}: expected (>= "
                          f"{DMA16_MIN_ROWS}, 16)")
@@ -536,5 +576,5 @@ def probe_dma16(x: torch.Tensor, fill: int = FILL_NAN) -> torch.Tensor:
         raise ValueError("x must be 16-byte aligned")
     out = torch.empty(MOSAIC_OUT, dtype=F32, device=x.device)
     kernels.launch("probe_dma16", "piet_probe_dma16", x.data_ptr(),
-                   out.data_ptr(), _word(fill))
+                   out.data_ptr())
     return out

@@ -22,10 +22,17 @@ root, builds its kernels there and times with chip_smoke's ``time_ms``
             ns/entry at one tile with its REPS (two launches), and where
             the tree takes ``tiles``, ns per entry and tile at its
             WIDE_TILES with WIDE_REPS (three launches);
-  words off plain  the words of probe_div, every probe_numerics launch
-            and (where the tree takes ``tiles``) every delivery variant's
-            states and pass counts at WIDE_TILES that differ from the
-            plain versions: a tree that is fast and wrong shows here.
+  mosaic    probe_mosaic's 22 probes in turn at one fill, one launch
+            each, as a tree without the batch launches them; where the
+            tree has ``probe_mosaic_batch``, the 22 in one launch at one
+            fill and at both; probe_dma16 on mosaic_probe's (1024, 16)
+            input back to back, and through ``l2_cold``;
+  words off plain  the words of probe_div, every probe_numerics launch,
+            (where the tree takes ``tiles``) every delivery variant's
+            states and pass counts at WIDE_TILES, every mosaic probe one
+            launch each and batched, and probe_dma16, at both fills, that
+            differ from the plain versions: a tree that is fast and wrong
+            shows here.
 
 Each run prints one JSON line; then, per number, each tree's mean and its
 two runs (``tools.ab_lines``).  Exits 1 when no card is present.
@@ -124,9 +131,50 @@ def measure(dev) -> dict:
             want, want_passes = probes.probe_delivery_plain(d, v, reps, t)
             off += cs.bitwise(got, want)[0] + int(
                 (passes != want_passes).sum())
+    off += measure_mosaic(res, dev)
     res["words off plain"] = off
     torch.cuda.synchronize()
     return res
+
+
+def measure_mosaic(res: dict, dev) -> int:
+    """The ``mosaic`` numbers of the module doc into ``res``; returns the
+    words off the plain versions."""
+    import torch
+
+    import chip_smoke as cs
+    from piet_tpu_torch.ops import probes
+    from piet_tpu_torch.tools import mosaic_probe
+
+    names = list(probes.MOSAIC_PROBES)
+    nan = probes.FILL_NAN
+    x = torch.from_numpy(mosaic_probe.probe_input(names[0])).to(dev)
+    xd = torch.from_numpy(mosaic_probe.probe_input("dma_16lane")).to(dev)
+    res["probe_mosaic 22 launches"] = cs.time_ms(
+        lambda: [probes.probe_mosaic(n, x, nan) for n in names], reps=20,
+        warm=2)
+    batched = hasattr(probes, "probe_mosaic_batch")
+    if batched:
+        for fills in ((nan,), probes.FILLS):
+            res[f"probe_mosaic batch 22 x {len(fills)} fill(s)"] = cs.time_ms(
+                lambda: probes.probe_mosaic_batch(names, x, fills), reps=50,
+                warm=2)
+    res["probe_dma16"] = cs.time_ms(lambda: probes.probe_dma16(xd, nan),
+                                    reps=50, warm=2)
+    cold = l2_cold(lambda t: probes.probe_dma16(t, nan), xd)
+    res["probe_dma16 l2_cold"] = cs.time_ms(cold, reps=50, warm=2)
+    del cold
+    off = 0
+    for fill in probes.FILLS:
+        for n in names:
+            off += cs.bitwise(probes.probe_mosaic(n, x, fill),
+                              probes.probe_mosaic_plain(n, x, fill))[0]
+        off += cs.bitwise(probes.probe_dma16(xd, fill),
+                          probes.probe_dma16_plain(xd, fill))[0]
+    if batched:
+        off += cs.bitwise(probes.probe_mosaic_batch(names, x),
+                          probes.probe_mosaic_batch_plain(names, x))[0]
+    return off
 
 
 def worker(root: str) -> None:
@@ -149,11 +197,11 @@ def main(argv=None) -> int:
     if len(argv) != 2:
         print(__doc__.split("\n\n")[1], file=sys.stderr)
         return 2
-    trees = dict(zip("AB", (os.path.abspath(r) for r in argv)))
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True,
         text=True).stdout.strip(), flush=True)
+    trees = dict(zip("AB", (os.path.abspath(r) for r in argv)))
     runs = ab_runs(os.path.abspath(__file__), trees)
     if runs is None:
         return 1

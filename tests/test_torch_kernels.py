@@ -1381,12 +1381,43 @@ def test_cuda_probe_mosaic_equals_plain(fill):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch", ["all", "few", "one"])
+def test_cuda_probe_mosaic_batch_equals_plain(batch):
+    """The batched launch at every mask the tool uses (all 22 probes, and
+    the probes a run names: a few, one) at both fills and at each alone:
+    one launch a call, every probe's slice bitwise its plain version on
+    the card and on the CPU (NaN words included)."""
+    _needs_cuda()
+    from piet_tpu_torch.tools import mosaic_probe
+    names = {"all": list(probes.MOSAIC_PROBES),
+             "few": ["roll_dynamic", "stack_scalars", "rmw_dyn_row",
+                     "splat11", "dyn2_read"],
+             "one": ["dynsub_statlane"]}[batch]
+    x = torch.from_numpy(mosaic_probe.probe_input(names[0])).cuda()
+    fill_sets = (probes.FILLS, (probes.FILLS[0],), (probes.FILLS[1],))
+    kernels.reset_launches()
+    for fills in fill_sets:
+        got = probes.probe_mosaic_batch(names, x, fills)
+        torch.cuda.synchronize()
+        assert got.shape == (len(fills), len(names), 8, 128)
+        for f, fill in enumerate(fills):
+            for j, name in enumerate(names):
+                assert _same_bits(got[f, j], probes.probe_mosaic_plain(
+                    name, x, fill)), (name, fill)
+                assert _same_bits(got[f, j].cpu(), probes.probe_mosaic_plain(
+                    name, x.cpu(), fill)), (name, fill)
+    assert kernels.LAUNCHES["probe_mosaic"] == len(fill_sets)
+
+
+@pytest.mark.cuda
 def test_cuda_probe_dma16_equals_plain():
-    """The bulk copy into 128 KiB of opted-in shared memory: t[1, 3, 3] of
-    arange(1024 * 16) is 6195; random rows at both fills, bitwise."""
+    """The four bulk copies into slot 1 in shared memory: t[1, 3, 3] of
+    arange(1024 * 16) is 6195 at both fills; random rows at both fills,
+    bitwise."""
     _needs_cuda()
     x = torch.arange(1024 * 16, dtype=torch.float32).reshape(1024, 16).cuda()
-    assert (probes.probe_dma16(x) == 6195.0).all()
+    for fill in probes.FILLS:
+        assert (probes.probe_dma16(x, fill) == 6195.0).all()
     x = torch.randn(1024, 16).cuda()
     for fill in probes.FILLS:
         assert _same_bits(probes.probe_dma16(x, fill),

@@ -17,11 +17,16 @@ probes that compute x * a + b.  Those are held within a stated bound
 against the interpreter, and bitwise against a numpy mirror of the
 unfused expression, which is what the kernel built with -fmad=false
 computes.
+
+The kernel runs every requested probe at every fill in one launch
+(``probes.probe_mosaic_batch``); its plain version is the stack of the
+per-probe ones, and the tool's lines come from that one batch.
 """
 
 import functools
 import importlib.util
 import os
+import re
 import sys
 from pathlib import Path
 
@@ -198,6 +203,118 @@ def test_fill_word_reaches_unwritten_scratch():
     assert (words[:4] == 0x7FC00001).all()         # min(fill, x), quieted
     out = probes.probe_mosaic("stack_scalars", x, 0x3F800000)
     assert (out == 1.0).all()
+
+
+#: Masks the tests hold the batch on, those the tool uses: its default
+#: run (all 22), a few probes (among them three whose output shows the
+#: fill) and one.
+BATCHES = {"all": list(probes.MOSAIC_PROBES),
+           "few": ["roll_dynamic", "stack_scalars", "rmw_dyn_row",
+                   "splat11", "dyn2_read"],
+           "one": ["dynsub_statlane"]}
+
+
+@pytest.mark.parametrize("fills", [probes.FILLS, (0,), (probes.FILL_NAN,)],
+                         ids=["both", "zero", "nan"])
+@pytest.mark.parametrize("batch", sorted(BATCHES))
+def test_batch_plain_equals_per_probe_plain(batch, fills):
+    """probe_mosaic_batch on a CPU tensor (its plain version) is the
+    stack of the per-probe plain versions, fill by fill, probe by probe,
+    with the NaN words in place."""
+    names = BATCHES[batch]
+    x = torch.from_numpy(_x(names[0]))
+    got = probes.probe_mosaic_batch(names, x, fills)
+    assert got.shape == (len(fills), len(names), 8, 128)
+    for f, fill in enumerate(fills):
+        for j, name in enumerate(names):
+            want = probes.probe_mosaic_plain(name, x, fill)
+            np.testing.assert_array_equal(_bits(got[f, j].numpy()),
+                                          _bits(want.numpy()))
+            np.testing.assert_array_equal(
+                _bits(probes.probe_mosaic(name, x, fill).numpy()),
+                _bits(want.numpy()))
+
+
+def test_batch_mask_and_its_checks():
+    """Bit p of the kernel's mask is probe p of the tool's order; the
+    batch takes distinct probes in that order and one or two fills."""
+    assert probes._mosaic_mask(["lane_slice_computed", "dyn2_read"],
+                               probes.FILLS) == 1 | 1 << 21
+    assert probes._mosaic_mask(list(probes.MOSAIC_PROBES), (0,)) == \
+        (1 << 22) - 1
+    x = torch.zeros(16, 128)
+    for names, fills in ((["splat11", "roll_dynamic"], probes.FILLS),
+                         (["splat11", "splat11"], probes.FILLS),
+                         ([], probes.FILLS), (["nope"], probes.FILLS),
+                         (["splat11"], ()), (["splat11"], (0, 0, 0))):
+        with pytest.raises(ValueError):
+            probes.probe_mosaic_batch(names, x, fills)
+
+
+def test_kernel_probe_order_and_fill_set_match_the_tool():
+    """csrc/mosaic_probe.cu's ``Probe`` enum is MOSAIC_PROBES' order (the
+    mask's bits), and its ``reads_unwritten`` probes, the only ones whose
+    scratch the kernel fills, include every probe whose plain output
+    changes with the fill."""
+    src = (ROOT / "piet_tpu_torch" / "csrc" / "mosaic_probe.cu").read_text()
+    enum = re.search(r"enum Probe \{([^}]*)\}", src).group(1)
+    assert [w.strip().lower() for w in enum.split(",")] == \
+        list(probes.MOSAIC_PROBES) + ["n_probes"]
+    body = re.search(r"reads_unwritten\(int p\) \{(.*?)\}", src,
+                     re.S).group(1)
+    filled = {w.lower() for w in re.findall(r"p == (\w+)", body)}
+    x = torch.from_numpy(_x("splat11"))
+    shows = {n for n in probes.MOSAIC_PROBES
+             if not torch.equal(*(probes.probe_mosaic_plain(n, x, f).view(
+                 torch.int32) for f in probes.FILLS))}
+    assert shows == filled == {"stack_scalars", "rmw_dyn_row",
+                               "major_dyn_scratch", "dyn2_read"}
+
+
+def test_dma16_plain_does_not_read_the_fill():
+    """No word of the DMA probe's scratch is read before a copy wrote it:
+    the same words at both fills and at any other word."""
+    x = torch.from_numpy(_x("dma_16lane"))
+    want = _bits(probes.probe_dma16_plain(x).numpy())
+    for fill in (*probes.FILLS, 0x7F800001, 0x3F800000):
+        np.testing.assert_array_equal(
+            _bits(probes.probe_dma16_plain(x, fill).numpy()), want)
+        np.testing.assert_array_equal(
+            _bits(probes.probe_dma16(x, fill).numpy()), want)
+
+
+def test_tool_lines_keep_their_words_and_order(monkeypatch):
+    """The tool's lines for all 23 probes, in the tool's order and in
+    another, from one batched run of the 22 (both fills) and dma_16lane
+    on its own."""
+    calls = []
+    batch = probes.probe_mosaic_batch
+
+    def spy(names, x, fills=probes.FILLS):
+        calls.append((list(names), tuple(fills)))
+        return batch(names, x, fills)
+    monkeypatch.setattr(probes, "probe_mosaic_batch", spy)
+    names = mosaic_probe.PROBES
+    assert mosaic_probe.probe(names, device="cpu") == [
+        f"{n}: OK" for n in names]
+    assert calls == [(list(probes.MOSAIC_PROBES), probes.FILLS)]
+    mixed = ["dma_16lane", "splat11", "nope", "roll_dynamic", "splat11"]
+    assert mosaic_probe.probe(mixed, device="cpu") == [
+        "dma_16lane: OK", "splat11: OK", "nope: FAIL KeyError: 'nope'",
+        "roll_dynamic: OK", "splat11: OK"]
+    assert calls[1] == (["roll_dynamic", "splat11"], probes.FILLS)
+
+
+def test_batch_error_fails_every_probe_of_the_batch(monkeypatch):
+    """A CUDA error is sticky: the batch's error is every probe's line,
+    and dma_16lane, which runs apart, is checked on its own."""
+    def fails(names, x, fills=probes.FILLS):
+        raise RuntimeError("piet_probe_mosaic failed: CUDA error 700\nmore")
+    monkeypatch.setattr(probes, "probe_mosaic_batch", fails)
+    lines = mosaic_probe.probe(mosaic_probe.PROBES, device="cpu")
+    assert lines == [
+        f"{n}: FAIL RuntimeError: piet_probe_mosaic failed: CUDA error 700"
+        for n in probes.MOSAIC_PROBES] + ["dma_16lane: OK"]
 
 
 def test_main_needs_a_card():
