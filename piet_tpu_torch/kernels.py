@@ -17,7 +17,7 @@ the sources and flags, so a rebuild happens only when they change.
 Dispatch rule shared by every kernel wrapper (:func:`on_cuda`): a CPU
 tensor runs the plain PyTorch version; a CUDA tensor launches the kernel
 or raises.  Nothing falls back.  Each wrapper counts its launches in
-:data:`LAUNCHES`.
+:data:`LAUNCHES` (kept in tracing.py with the port's other counters).
 
 A wrapper counts on the host, when it enqueues its kernel.  Under CUDA
 graph capture (renderer/graph.py) nothing runs: the capture's counts are
@@ -28,7 +28,6 @@ that ran.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import hashlib
 import os
@@ -39,27 +38,17 @@ from pathlib import Path
 
 import torch
 
+# The launch counters live with the port's other counters; their names
+# stay importable from here.
+from .tracing import (LAUNCHES, add_launches, launches_apart,  # noqa: F401
+                      reset_launches)
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "piet_tpu_torch"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-prec-div=true", "-prec-sqrt=true",
               "-ftz=false", "-Xcompiler", "-fPIC"]
-
-#: Launches per kernel wrapper (one per wrapper call that launched its
-#: kernel).  Plain-version calls never count.
-#: Kernel D counts its paired instantiation ("fine_paired") apart from
-#: its run dispatch ("fine"), and expand.cu its pairing compaction
-#: ("expand_pairing", ``piet_compact_rows``) apart from the expansion
-#: ("expand"); the three kernels of ``csrc/probes.cu`` and the two of
-#: ``csrc/mosaic_probe.cu`` (the tools', ``ops/probes.py``) count one
-#: each, and ``probe_numerics``' division op, launched for
-#: ``div_probe``, counts as "probe_div".
-LAUNCHES = {"candfuse": 0, "hitfuse": 0, "sort": 0, "fine": 0, "expand": 0,
-            "keyed": 0, "gatherm": 0, "fine_dense": 0, "fine_paired": 0,
-            "expand_pairing": 0, "probe_div": 0, "probe_numerics": 0,
-            "probe_halfmix": 0, "probe_delivery": 0, "probe_mosaic": 0,
-            "probe_dma16": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -88,31 +77,6 @@ _SIGNATURES = {
 }
 
 _LIB = None
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def add_launches(counts: dict) -> None:
-    for k, n in counts.items():
-        LAUNCHES[k] += n
-
-
-@contextlib.contextmanager
-def launches_apart():
-    """Count the launches made inside the block apart: they fill the
-    yielded dict (kernel -> launches), and :data:`LAUNCHES` is left as it
-    was before the block."""
-    before = dict(LAUNCHES)
-    apart = {}
-    try:
-        yield apart
-    finally:
-        for k, n in before.items():
-            apart[k] = LAUNCHES[k] - n
-            LAUNCHES[k] = n
 
 
 def _sources():

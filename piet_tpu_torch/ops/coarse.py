@@ -38,7 +38,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .. import kernels
+from .. import kernels, tracing
 from ..layout.entry_stream import (ENTRY_WORDS, META_CLEAR_BIT,
                                    META_NCMDS_MASK, META_OPAQUE_BIT,
                                    N_S0_ARGS, N_S1_ARGS, RUN_CAP, W_BAIL,
@@ -98,6 +98,7 @@ class _Probes:
         self.upto = upto
 
     def __call__(self, name: str, *vals: torch.Tensor) -> None:
+        tracing.mark(name)
         if self.found is None:
             return
         self.found[name] = vals
@@ -416,6 +417,7 @@ def derive_seg_stage(scene: DeviceScene, item_pack: torch.Tensor, *,
          seg_i32,
          _bits(torch.stack([s_invd, s_m, s_K], dim=1)),
          hit_excl[:, None]], dim=1).contiguous()        # (S, 27)
+    tracing.mark("seg_rows")
     return SegPre(seg_rows=seg_rows, hit_counts=hit_counts,
                   hit_excl=hit_excl, n_segs=n_segs, n_hits=hit_incl[-1:])
 

@@ -23,18 +23,26 @@ launches are kept out of ``kernels.LAUNCHES``, and each replay adds the
 launches the capture recorded.  A capture that fails raises; nothing
 falls back to running the step eagerly on the card.
 
+Tracing (tracing.py): a call is the span ``piet.step``, with
+``piet.upload`` around the copies into the static inputs and
+``piet.replay`` around the replay and the clone; the pre-run and the
+capture are ``piet.capture``, counted in ``tracing.graph_captures`` and
+``tracing.capture_s``.  A capture records the step's stage map
+(``tracing.mark``), which its entry keeps (``stages``) and
+``tracing.GRAPHS`` holds.
+
 On the CPU (the tests) there is no graph: a call copies into the static
 tensors and runs the step eagerly.
 """
 
 from __future__ import annotations
 
-import ctypes
+import time
 from typing import Callable, Dict, List, Optional
 
 import torch
 
-from .. import kernels
+from .. import kernels, tracing
 
 
 def _flatten(tree, leaves: List[torch.Tensor]):
@@ -69,6 +77,7 @@ class _Entry:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.out: Optional[torch.Tensor] = None
         self.launches: Dict[str, int] = {}
+        self.stages: List[tuple] = []
 
 
 class CapturedStep:
@@ -104,9 +113,10 @@ class CapturedStep:
 
     def _stage(self, x) -> _Entry:
         e, leaves = self._entry(x)
-        for dst, src in zip(e.static, leaves):
-            if src is not dst:
-                dst.copy_(src)
+        with tracing.span("piet.upload"):
+            for dst, src in zip(e.static, leaves):
+                if src is not dst:
+                    dst.copy_(src)
         return e
 
     def n_graphs(self) -> int:
@@ -116,42 +126,50 @@ class CapturedStep:
 
     def __call__(self, x) -> torch.Tensor:
         """Stage ``x``, run the step; return its output as a fresh tensor."""
-        e = self._stage(x)
-        if self.device.type != "cuda":
-            out = self.fn(e.tree)
-            e.built = True
-            return out
-        # The step's device is the current one while it is captured and
-        # replayed: the graph and the kernels' stream (kernels.stream) are
-        # the current device's.
-        with torch.cuda.device(self.device):
-            if e.graph is None:
-                self._capture(e)
+        with tracing.span("piet.step"):
+            e = self._stage(x)
+            if self.device.type != "cuda":
+                out = self.fn(e.tree)
                 e.built = True
-            e.graph.replay()
-            out = e.out.clone()
-        kernels.add_launches(e.launches)
-        return out
+                return out
+            # The step's device is the current one while it is captured
+            # and replayed: the graph and the kernels' stream
+            # (kernels.stream) are the current device's.
+            with torch.cuda.device(self.device):
+                if e.graph is None:
+                    self._capture(e)
+                    e.built = True
+                with tracing.span("piet.replay"):
+                    e.graph.replay()
+                    out = e.out.clone()
+            kernels.add_launches(e.launches)
+            return out
 
     def _capture(self, e: _Entry) -> None:
         dev = self.device
-        with kernels.launches_apart():
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                self.fn(e.tree)
-            torch.cuda.current_stream(dev).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        # A capture stream of the step's card: torch.cuda.graph's default
-        # one is made once, on the card current at the first capture.
-        with kernels.launches_apart() as launches:
-            with torch.cuda.graph(graph, stream=torch.cuda.Stream(dev)):
-                out = self.fn(e.tree)
-        e.graph, e.out, e.launches = graph, out, launches
-
-
-#: CUgraphNodeType values of the nodes that are device work (cuda.h).
-_DEVICE_NODES = {0: "kernel", 1: "memcpy", 2: "memset"}
+        # The kernels' library is loaded first (built on a checkout's first
+        # run), so that capture_s is the pre-run's and the capture's own.
+        kernels.library()
+        t0 = time.perf_counter()
+        with tracing.span("piet.capture"):
+            with kernels.launches_apart():
+                side = torch.cuda.Stream(dev)
+                side.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(side):
+                    self.fn(e.tree)
+                torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            # A capture stream of the step's card: torch.cuda.graph's
+            # default one is made once, on the card current at the first
+            # capture.
+            stream = torch.cuda.Stream(dev)
+            with kernels.launches_apart() as launches:
+                with torch.cuda.graph(graph, stream=stream):
+                    with tracing.recording_stages(
+                            stream.cuda_stream) as stages:
+                        out = self.fn(e.tree)
+        tracing.add_capture(time.perf_counter() - t0)
+        e.graph, e.out, e.launches, e.stages = graph, out, launches, stages
 
 
 def device_ops(fn: Callable[[], object], device="cuda") -> List[str]:
@@ -171,20 +189,4 @@ def device_ops(fn: Callable[[], object], device="cuda") -> List[str]:
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         with torch.cuda.graph(graph, stream=torch.cuda.Stream(dev)):
             fn()
-    cuda = ctypes.CDLL("libcuda.so.1")
-    handle = ctypes.c_void_p(graph.raw_cuda_graph())
-    n = ctypes.c_size_t(0)
-    if cuda.cuGraphGetNodes(handle, None, ctypes.byref(n)) != 0:
-        raise RuntimeError("cuGraphGetNodes failed")
-    nodes = (ctypes.c_void_p * n.value)()
-    if cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) != 0:
-        raise RuntimeError("cuGraphGetNodes failed")
-    kinds = []
-    for node in nodes[:n.value]:
-        kind = ctypes.c_int(-1)
-        if cuda.cuGraphNodeGetType(ctypes.c_void_p(node),
-                                   ctypes.byref(kind)) != 0:
-            raise RuntimeError("cuGraphNodeGetType failed")
-        if kind.value in _DEVICE_NODES:
-            kinds.append(_DEVICE_NODES[kind.value])
-    return kinds
+    return tracing.graph_device_nodes(graph.raw_cuda_graph())

@@ -47,6 +47,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..config import RenderConfig
 from ..scene.color import decode_color_linear
 
@@ -135,18 +136,23 @@ def prepare_scene(scene, config: RenderConfig, device="cuda",
     scene/animate.py), whose coarse pass then derives segments itself."""
     from .segstage import build_seg_pre
 
-    _check_scene_size(scene, config)
-    NI = config.max_items
-    host = DeviceScene(
-        tags=_pad(scene.tags, NI), colors_u32=_pad(scene.colors, NI),
-        colors_lin=_pad(decode_color_linear(scene.colors), NI),
-        widths=_pad(scene.widths, NI), bboxes=_pad(scene.bboxes, NI),
-        pt_offset=_pad(scene.pt_offset, NI), n_pts=_pad(scene.n_pts, NI),
-        points=_pad(scene.points, config.max_points),
-        flags=_pad(scene.flags, NI), clips=_pad(scene.clips, NI),
-        grads=_pad(scene.grads, NI), n_items=np.int32(scene.n_items),
-        seg_pre=build_seg_pre(scene, config) if seg_pre else None)
-    return device_scene_from_numpy(host, device)
+    with tracing.span("piet.prepare"):
+        _check_scene_size(scene, config)
+        NI = config.max_items
+        sp = None
+        if seg_pre:
+            with tracing.span("piet.prepare.seg_pre"):
+                sp = build_seg_pre(scene, config)
+        host = DeviceScene(
+            tags=_pad(scene.tags, NI), colors_u32=_pad(scene.colors, NI),
+            colors_lin=_pad(decode_color_linear(scene.colors), NI),
+            widths=_pad(scene.widths, NI), bboxes=_pad(scene.bboxes, NI),
+            pt_offset=_pad(scene.pt_offset, NI), n_pts=_pad(scene.n_pts, NI),
+            points=_pad(scene.points, config.max_points),
+            flags=_pad(scene.flags, NI), clips=_pad(scene.clips, NI),
+            grads=_pad(scene.grads, NI), n_items=np.int32(scene.n_items),
+            seg_pre=sp)
+        return device_scene_from_numpy(host, device)
 
 
 def _stage_seg_pre(sp, device) -> SegPre:
@@ -301,6 +307,7 @@ def render_slab(scene: DeviceScene, config: RenderConfig, *, tiles_y: int,
             coarse.first, coarse.n_entries,
             _solid_to_present_u32(coarse.solid), coarse.stream, row0,
             tile_h=th, tile_w=tw, tiles_x=tiles_x, paired=pair != "off")
+        tracing.mark("fine")
         stats = {"max_tile_cmds": coarse.counts.max(),
                  "bail_tiles": (coarse.solid != 0).sum(), **coarse.diag}
         return img, stats
@@ -309,6 +316,7 @@ def render_slab(scene: DeviceScene, config: RenderConfig, *, tiles_y: int,
     fine = fine_rasterize_xla(
         coarse.counts.reshape(tiles_y, tiles_x), coarse.tags, coarse.args,
         row0, tile_h=th, tile_w=tw, cmd_capacity=config.cmd_capacity)
+    tracing.mark("fine")
     # Present composite: bailed tiles take their solid colour's bytes.
     solid = coarse.solid.reshape(tiles_y, 1, tiles_x, 1)
     shape = (tiles_y, th, tiles_x, tw)
@@ -329,9 +337,11 @@ def _frame_flat(scene: DeviceScene, config: RenderConfig, fine_impl: str,
     img, stats = render_slab(scene, config, tiles_y=config.tiles_y, row0=0,
                              fine_impl=fine_impl, pair=pair)
     keys[:] = list(stats)
-    return torch.cat([img[:config.height, :config.width].reshape(-1),
+    flat = torch.cat([img[:config.height, :config.width].reshape(-1),
                       torch.stack([v.to(torch.int32)
                                    for v in stats.values()])])
+    tracing.mark("present")
+    return flat
 
 
 class RenderFn:
@@ -495,22 +505,24 @@ class Renderer:
         check every frame's; return the image(s)."""
         flat = fn.flat(x)
         img, _ = fn.split(flat)
-        vals = flat[..., -len(fn.keys):]
-        if vals.ndim == 1:
-            self.last_stats = dict(zip(fn.keys, vals.tolist()))
-            self._check_capacity(self.last_stats)
-        else:
-            self.last_stats = dict(zip(fn.keys, vals.t().tolist()))
-            self._check_capacity({k: sum(v)
-                                  for k, v in self.last_stats.items()})
+        with tracing.span("piet.stats_read"):
+            vals = flat[..., -len(fn.keys):]
+            if vals.ndim == 1:
+                self.last_stats = dict(zip(fn.keys, vals.tolist()))
+                self._check_capacity(self.last_stats)
+            else:
+                self.last_stats = dict(zip(fn.keys, vals.t().tolist()))
+                self._check_capacity({k: sum(v)
+                                      for k, v in self.last_stats.items()})
         return img
 
     def render_u32(self, scene) -> torch.Tensor:
         """Stage ``scene`` into the frame step's static inputs and run it:
         (H, W) int32 RGBA8 bits."""
-        self._staged = self._render.stage(
-            prepare_scene(scene, self.config, "cpu"))
-        return self._finish(self._render, self._staged)
+        with tracing.span("piet.render_u32"):
+            self._staged = self._render.stage(
+                prepare_scene(scene, self.config, "cpu"))
+            return self._finish(self._render, self._staged)
 
     def render(self, scene) -> np.ndarray:
         return self._rgba8(self.render_u32(scene))

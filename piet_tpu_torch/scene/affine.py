@@ -32,6 +32,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from .. import tracing
 from .scene import (FLAG_BRUSH_LINEAR, FLAG_BRUSH_RADIAL, TAG_CIRCLE,
                     TAG_LINE, TAG_POLY)
 
@@ -262,8 +263,10 @@ def make_affine_render_fn(config, scene, mats_fn: Callable, device="cuda",
     ab = build_base(scene, config, dev)
 
     def scene_at(t):
-        return transform_device_scene(base, ab,
-                                      mats_fn(frame_scalar(t, dev)))
+        scene_t = transform_device_scene(base, ab,
+                                         mats_fn(frame_scalar(t, dev)))
+        tracing.mark("animate")
+        return scene_t
 
     render_t = make_time_render_fn(config, scene_at, dev, fine_impl)
     render_t.scene_at = scene_at

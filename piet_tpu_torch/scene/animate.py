@@ -27,6 +27,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import tracing
+
 F32, I32 = torch.float32, torch.int32
 K_VERTS = 12
 _STEP = float(np.float32(2.0 * math.pi / K_VERTS))
@@ -161,7 +163,9 @@ def make_animated_render_fn(config, *, size: int = 1024, n: int = 200,
     params = host_params(size=size, n=n, seed=seed, device=dev)
 
     def scene_at(t):
-        return animate_device_scene(base, params, t)
+        scene_t = animate_device_scene(base, params, t)
+        tracing.mark("animate")
+        return scene_t
 
     render_t = make_time_render_fn(config, scene_at, dev, fine_impl)
     render_t.scene_at = scene_at
