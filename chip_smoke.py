@@ -52,8 +52,10 @@ and exits non-zero:
   4. the static path: Renderer.for_scene(tiger, 1664, 1664).render() and
      the same at 3840x2160, with the launch counters reset just before
      and read just after each; the images must equal the numpy oracle
-     bitwise, every kernel of the path (all but expand and fine_dense)
-     must have run, and keyed, candfuse and gatherm once each;
+     bitwise, every kernel of the path (all but fine_dense) must have
+     run, keyed, candfuse and expand once each and gatherm twice (render
+     stages the scene for one frame, which derives its segments on the
+     card: the endpoint fetch, then the backdrop);
   4b. the dense path (fine_impl="dense"): the same two tiger frames
      against the same oracle images, with fine_dense run, entries-fine
      not run and no PTCL overflow; the three group fixtures at 1024^2; one
@@ -71,7 +73,8 @@ and exits non-zero:
      and hole, at the tiger 1664^2 and beziers_10k 1024^2: each frame
      bitwise against the oracle, the graphed frame against the eager
      one, kernel D's paired instantiation launched once a frame and the
-     compaction ("expand_pairing") once a compact frame, expand never;
+     compaction ("expand_pairing") once a compact frame, expand once (the
+     segment derivation);
      live entries, kernel D (run dispatch on "off", paired on the others,
      three times each), the compaction eager and replayed from a graph,
      both fine_dense instantiations on the scene's dense PTCL and the
@@ -360,6 +363,7 @@ def replay_of(fn):
     the warm-up and the capture are kept out of kernels.LAUNCHES."""
     import torch
     from piet_tpu_torch import kernels
+    from piet_tpu_torch.renderer.graph import collector_paused
     with kernels.launches_apart():
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
@@ -367,7 +371,7 @@ def replay_of(fn):
             fn()
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with collector_paused(), torch.cuda.graph(graph):
             fn()
     return graph.replay
 
@@ -1129,15 +1133,19 @@ def main() -> int:
               f"live entries {r.last_stats['live_entries']}", flush=True)
         assert img.shape == (h, w, 4) and img.dtype == np.uint8
         assert n_bad == 0, f"{w}x{h} image differs from the oracle"
-        # A static scene stages its segments on the host: no expansion;
-        # the entries route runs no dense interpreter.
-        assert launches["expand"] == launches["fine_dense"] == 0, launches
+        # render() stages the scene for one frame: the frame derives its
+        # segments on the card (one expansion); the entries route runs no
+        # dense interpreter.
+        assert launches["expand"] == 1, launches
+        assert launches["fine_dense"] == 0, launches
         assert all(v > 0 for k, v in frame_counts(launches).items()
-                   if k not in ("expand", "fine_dense", "fine_paired",
+                   if k not in ("fine_dense", "fine_paired",
                                 "expand_pairing")), launches
         assert launches["keyed"] == 1, launches
-        # Kernel A one call (rows and expansion), gatherm one (backdrop).
-        assert launches["candfuse"] == launches["gatherm"] == 1, launches
+        # Kernel A one call (rows and expansion), gatherm two (endpoints,
+        # backdrop).
+        assert launches["candfuse"] == 1, launches
+        assert launches["gatherm"] == 2, launches
 
     # ---- 4b. the dense path ----------------------------------------------
     dense_launches = {}
@@ -1158,9 +1166,9 @@ def main() -> int:
         assert n_bad == 0, f"dense {w}x{h} image differs from the oracle"
         assert st["overflow_cmds"] == 0, st
         assert launches["fine_dense"] > 0 and launches["fine"] == 0, launches
-        assert launches["expand"] == 0, launches
+        assert launches["expand"] == 1, launches
         assert all(v > 0 for k, v in frame_counts(launches).items()
-                   if k not in ("expand", "fine", "fine_paired",
+                   if k not in ("fine", "fine_paired",
                                 "expand_pairing")), launches
     for name, gr in group_renderers.items():
         sc = group_scenes[name]
@@ -1285,13 +1293,13 @@ def main() -> int:
                   f"{launches}", flush=True)
             assert n_bad == 0, f"pairing {mode} {tag} differs"
             # Kernel D's paired instantiation counts as "fine_paired", the
-            # compaction as "expand_pairing" (a static frame expands no
-            # segments).
+            # compaction as "expand_pairing" apart from the segment
+            # derivation's one expansion ("expand").
             assert launches["fine"] == (mode == "off"), launches
             assert launches["fine_paired"] == (mode != "off"), launches
             assert launches["expand_pairing"] == (mode == "compact"), \
                 launches
-            assert launches["expand"] == 0, launches
+            assert launches["expand"] == 1, launches
             graph_check(f"pairing {mode} {tag}", rgba(r.render_u32(sc)),
                         rgba(r.render_device(r.prepare(sc))[0]), gold)
             pt = {}
@@ -1330,7 +1338,8 @@ def main() -> int:
                 pt_ms["compaction bound (bytes)"] = bound(
                     nbytes(ck) + int(ck.sum()) * cb.shape[1] * 4
                     + nbytes(cb) + 4)[0]
-            staged_in = r._staged
+            # Timed as a stage-once caller replays it: the host stage.
+            staged_in = r._render.stage(r.prepare(sc))
             t_lat = frame_ms(lambda: r._render.flat(staged_in), reps=20)
             pt_ms[f"graphed frame {mode}"] = t_lat
             t_dev = time_ms(lambda: r._render.flat(staged_in), reps=10,
@@ -1370,10 +1379,11 @@ def main() -> int:
     for impl in ("dense", "entries"):
         r1 = Renderer(cfg, dev, fine_impl=impl)
         one = rgba(r1.render_u32(scene))
-        one_in = r1._staged
+        # The one-slab frame staged once with the host segment stage, then
+        # with its segments derived on the card, as every slab derives
+        # them (render_u32's signature).
+        one_in = r1._render.stage(prepare_scene(scene, cfg, "cpu"))
         t_one = frame_ms(lambda: r1._render.flat(one_in), reps=20)
-        # The one-slab frame with its segments derived on the card, as
-        # every slab derives them (the step's second signature).
         one_dv = r1._render.stage(d_slab)
         t_one_dv = frame_ms(lambda: r1._render.flat(one_dv), reps=20)
         for n, il in ((4, 1), (2, 2)):
@@ -1439,7 +1449,8 @@ def main() -> int:
         graph_check(f"headline tiger 19.2x 3840x2160 {impl}", img,
                     rgba(r.render_device(r.prepare(head))[0]), head_gold)
         st = r.last_stats
-        head_in = r._staged
+        # Timed as a stage-once caller replays it: the host stage.
+        head_in = r._render.stage(r.prepare(head))
         t_lat = frame_ms(lambda: r._render.flat(head_in), reps=20)
         tr = trace_frames(lambda: r._render.flat(head_in))
         print(f"headline tiger 19.2x 3840x2160 {impl} [{card}]: graphed "
@@ -1952,8 +1963,7 @@ def phase_cli(card, dev, scene, cfg, tiger_gold, aff_render, aff_ni,
         run_cli(["render", "--scene", "tiger", "--width", "1664",
                  "--height", "1664", "--fine-impl", impl, "--out", str(png)],
                 ENTRIES_KERNELS if impl == "entries" else DENSE_KERNELS,
-                ("expand",) + (("fine_dense",) if impl == "entries"
-                               else ("fine",)), paths)
+                ("fine_dense",) if impl == "entries" else ("fine",), paths)
         tiger_png[impl] = read_png(str(png))
         check(f"render tiger 1664x1664 {impl}", tiger_png[impl], tiger_gold)
     svg = Path(TIGER_PATH)

@@ -116,8 +116,10 @@ def bench_config(name, scene, width, height, *, device, fine_impl="auto",
         width=width, height=height, tile_height=32, tile_width=128,
         cmd_capacity=1024))
     renderer = Renderer(cfg, device, fine_impl=fine_impl)
-    img = renderer.render_u32(scene)  # capture + capacity check via stats
+    # Staged once, with the host segment stage, as a caller that replays
+    # one scene stages it; the first frame captures and checks capacities.
     staged = renderer._render.stage(prepare_scene(scene, cfg, device))
+    img = renderer._finish(renderer._render, staged)
     ms = time_renderer(renderer, staged)
     stats = renderer.last_stats or {}
     if record is not None:

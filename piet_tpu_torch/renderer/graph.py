@@ -20,8 +20,9 @@ Before capture the step runs once eagerly on a side stream, as the
 library, runs the kernels' one-time attribute calls and fills the
 allocator.  That run and the capture are set-up, not frames: their kernel
 launches are kept out of ``kernels.LAUNCHES``, and each replay adds the
-launches the capture recorded.  A capture that fails raises; nothing
-falls back to running the step eagerly on the card.
+launches the capture recorded.  The capture runs with Python's cyclic
+garbage collector paused (:func:`collector_paused`).  A capture that
+fails raises; nothing falls back to running the step eagerly on the card.
 
 Tracing (tracing.py): a call is the span ``piet.step``, with
 ``piet.upload`` around the copies into the static inputs and
@@ -37,6 +38,8 @@ tensors and runs the step eagerly.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -64,6 +67,22 @@ def _unflatten(spec, leaves):
     cls, kids = spec
     vals = [_unflatten(k, leaves) for k in kids]
     return cls(vals) if cls is tuple else cls(*vals)
+
+
+@contextlib.contextmanager
+def collector_paused():
+    """Python's cyclic garbage collector off inside the block, as it was
+    after.  A capture runs with it off: a collection there can free an
+    unreferenced step held in a reference cycle, and releasing its graph
+    is not permitted while a stream captures, which invalidates the
+    capture.  The garbage is collected after the block."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
 
 
 class _Entry:
@@ -163,7 +182,7 @@ class CapturedStep:
             # default one is made once, on the card current at the first
             # capture.
             stream = torch.cuda.Stream(dev)
-            with kernels.launches_apart() as launches:
+            with kernels.launches_apart() as launches, collector_paused():
                 with torch.cuda.graph(graph, stream=stream):
                     with tracing.recording_stages(
                             stream.cuda_stream) as stages:
@@ -187,6 +206,7 @@ def device_ops(fn: Callable[[], object], device="cuda") -> List[str]:
             fn()
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.graph(graph, stream=torch.cuda.Stream(dev)):
+        with collector_paused(), torch.cuda.graph(
+                graph, stream=torch.cuda.Stream(dev)):
             fn()
     return tracing.graph_device_nodes(graph.raw_cuda_graph())

@@ -1,9 +1,15 @@
 """Host orchestration: stage a scene, bin it, rasterize it.
 
-Port of ``piet_tpu/renderer/renderer.py``.  The scene is staged once as
-padded tensors on a device (``prepare_scene``, with the numpy host segment
-stage ``build_seg_pre`` unless a device animation derives segments per
-frame), then a frame takes one of two routes (``fine_impl``):
+Port of ``piet_tpu/renderer/renderer.py``.  The scene is staged as padded
+tensors on a device (``prepare_scene``).  A caller that stages a scene
+once and replays it many times (``make_render_fn`` with ``prepare_scene``'s
+default, ``stack_scenes``) stages the numpy host segment stage
+``build_seg_pre`` with it.  A scene staged anew for every frame
+(``Renderer.render_u32`` and ``render``) or moved on the device (a device
+animation) is staged without it, and the frame's coarse pass derives the
+segments on the device: bitwise the same stage, and far cheaper on the
+card than ``build_seg_pre``'s host numpy for a scene that is used once.
+A frame takes one of two routes (``fine_impl``):
 
 * ``"dense"`` (the JAX package's portable ``"xla"`` route):
   ``coarse_rasterize(output="dense")`` -> ``fine_rasterize_xla`` on the
@@ -26,7 +32,8 @@ replayed on every later call (renderer/graph.py); on the CPU it runs
 eagerly.  :func:`make_render_sequence_fn` captures N frames of a stacked
 scene in one graph (the counterpart of JAX's one ``lax.map`` dispatch).
 Every ``Renderer`` entry point goes through them: ``render``/
-``render_u32`` stage into the step's static inputs and replay it,
+``render_u32`` stage into the step's static inputs (segments derived in
+the step) and replay it,
 ``render_sequence`` replays the sequence graph, ``render_packed_u32``
 replays a step that unpacks the single staging buffer of ``pack_scene``
 inside the graph, and ``render_updated`` copies only the dirty fields into
@@ -131,9 +138,12 @@ def prepare_scene(scene, config: RenderConfig, device="cuda",
     """Pad an SoA scene into capacity-sized tensors on ``device``.
 
     ``seg_pre=True`` also stages the host-precomputed segment stage
-    (renderer/segstage.py), bitwise equal to the device derivation; pass
-    False for paths that move geometry on the device (scene/affine.py,
-    scene/animate.py), whose coarse pass then derives segments itself."""
+    (renderer/segstage.py), bitwise equal to the device derivation: for
+    callers that stage a scene once and replay it.  Pass False where the
+    scene is staged for one frame (``Renderer.render_u32``) or its
+    geometry moves on the device (scene/affine.py, scene/animate.py):
+    the coarse pass then derives the segments itself.  Each call counts
+    one in ``tracing.SEG_STAGES``, under "host" or "device"."""
     from .segstage import build_seg_pre
 
     with tracing.span("piet.prepare"):
@@ -143,6 +153,9 @@ def prepare_scene(scene, config: RenderConfig, device="cuda",
         if seg_pre:
             with tracing.span("piet.prepare.seg_pre"):
                 sp = build_seg_pre(scene, config)
+            tracing.SEG_STAGES["host"] += 1
+        else:
+            tracing.SEG_STAGES["device"] += 1
         host = DeviceScene(
             tags=_pad(scene.tags, NI), colors_u32=_pad(scene.colors, NI),
             colors_lin=_pad(decode_color_linear(scene.colors), NI),
@@ -482,7 +495,8 @@ class Renderer:
                    fine_impl=fine_impl)
 
     def prepare(self, scene) -> DeviceScene:
-        """The scene staged as fresh tensors on the renderer's device."""
+        """The scene staged as fresh tensors on the renderer's device, with
+        the host segment stage: for a caller that replays it."""
         return prepare_scene(scene, self.config, self.device)
 
     def render_device(self, dev: DeviceScene):
@@ -518,10 +532,15 @@ class Renderer:
 
     def render_u32(self, scene) -> torch.Tensor:
         """Stage ``scene`` into the frame step's static inputs and run it:
-        (H, W) int32 RGBA8 bits."""
+        (H, W) int32 RGBA8 bits.  The scene is staged for this call alone,
+        without the host segment stage: the step derives the segments on
+        the device (``prepare_scene(..., seg_pre=False)``), so no call
+        pays ``build_seg_pre``'s host numpy.  A caller that replays one
+        scene many times stages it once with ``prepare_scene`` and calls
+        ``make_render_fn``'s step."""
         with tracing.span("piet.render_u32"):
             self._staged = self._render.stage(
-                prepare_scene(scene, self.config, "cpu"))
+                prepare_scene(scene, self.config, "cpu", seg_pre=False))
             return self._finish(self._render, self._staged)
 
     def render(self, scene) -> np.ndarray:
@@ -567,9 +586,9 @@ class Renderer:
         """Incremental re-render: copy only ``fields`` of ``scene`` into the
         static inputs staged by the last ``render``/``render_u32`` (every
         other tensor stays as staged), then run the step.  Topology (tags,
-        offsets, counts, item count) must not have changed.  When a
-        geometry field is dirty, the host segment stage is rebuilt for the
-        updated scene and copied in too."""
+        offsets, counts, item count) must not have changed.  The staged
+        scene has no host segment stage: the step derives the segments
+        from the updated fields on the device."""
         if self._staged is None:
             return self.render_u32(scene)
         cfg = self.config
@@ -579,7 +598,6 @@ class Renderer:
         def put(dst: torch.Tensor, arr) -> None:
             dst.copy_(_host_tensor(_pad(np.asarray(arr), dst.shape[0])))
 
-        geom_dirty = False
         for f in fields:
             if f not in self._DYNAMIC_FIELDS:
                 raise ValueError(f"field {f!r} is not restageable")
@@ -588,12 +606,6 @@ class Renderer:
                 put(dev.colors_lin, decode_color_linear(scene.colors))
             else:
                 put(getattr(dev, f), getattr(scene, f))
-            geom_dirty |= f in ("points", "bboxes", "widths")
-        if geom_dirty and dev.seg_pre is not None:
-            from .segstage import build_seg_pre
-            sp = build_seg_pre(scene, cfg)
-            for f in SegPre._fields:
-                put(getattr(dev.seg_pre, f), getattr(sp, f))
         return self._finish(self._render, dev)
 
     def _check_capacity(self, stats: Dict[str, int]) -> None:

@@ -109,7 +109,7 @@ def measure(dev) -> dict:
             rf = Renderer(c, dev, fine_impl="entries")
             del os.environ["PIET_PAIR"]
             rf.render(sc)
-            st = rf._staged
+            st = rf._render.stage(rf.prepare(sc))
             res[f"{tag} frame {mode}"] = cs.frame_ms(
                 lambda: rf._render.flat(st), reps=20)
         torch.cuda.synchronize()

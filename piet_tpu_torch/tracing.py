@@ -13,7 +13,10 @@ spans, all prefixed ``piet.``:
   (``CapturedStep.__call__``): one per entry call, the parent of the
   frame's other spans;
 * ``piet.prepare`` (``prepare_scene``: padding, colour decode), with
-  ``piet.prepare.seg_pre`` (``segstage.build_seg_pre``) inside;
+  ``piet.prepare.seg_pre`` (``segstage.build_seg_pre``) inside where the
+  scene takes the host segment stage: a stage-once caller's
+  ``prepare_scene``, not ``Renderer.render_u32``'s, whose frame derives
+  the segments on the card;
 * ``piet.upload`` (``CapturedStep``'s copies into its static inputs);
 * ``piet.replay`` (the graph's replay and the output's clone);
 * ``piet.stats_read`` (``Renderer._finish``: the stats read and the
@@ -22,7 +25,9 @@ spans, all prefixed ``piet.``:
 
 **Counters.**  :data:`LAUNCHES` counts kernel launches per wrapper
 (kernels.py); :data:`graph_captures` and :data:`capture_s` count the CUDA
-graphs captured and the host seconds they took.  They are always on.
+graphs captured and the host seconds they took; :data:`SEG_STAGES`
+counts the scenes ``prepare_scene`` staged, by where their segment stage
+is computed.  They are always on.
 
 **Stage map.**  A CUDA graph replay runs hundreds of device ops whose
 kernel names the stages share, and a profiler range opened while a graph
@@ -103,6 +108,11 @@ LAUNCHES = {"candfuse": 0, "hitfuse": 0, "sort": 0, "fine": 0, "expand": 0,
             "expand_pairing": 0, "probe_div": 0, "probe_numerics": 0,
             "probe_halfmix": 0, "probe_delivery": 0, "probe_mosaic": 0,
             "probe_dma16": 0}
+
+#: Scenes staged by ``prepare_scene``, by where their segment stage is
+#: computed: "host" (``build_seg_pre``, staged with the scene) or "device"
+#: (no ``seg_pre``: the frame derives it, ``coarse.derive_seg_stage``).
+SEG_STAGES = {"host": 0, "device": 0}
 
 #: CUDA graphs captured by ``CapturedStep`` in this process, and the host
 #: seconds of their eager pre-runs and captures.

@@ -651,10 +651,11 @@ def test_cuda_render_bitwise_equals_oracle(name, make, size, th):
                            fine_impl="entries")
     kernels.reset_launches()
     got = r.render(scene)
-    # A static scene stages its segments on the host: no expansion; the
-    # entries route runs no dense interpreter.
+    # render() stages the scene for one frame, which derives its segments
+    # on the card (one expansion); the entries route runs no dense
+    # interpreter.
     launches = dict(kernels.LAUNCHES)
-    assert launches.pop("expand") == 0
+    assert launches.pop("expand") == 1
     assert launches.pop("fine_dense") == 0
     assert launches.pop("fine_paired") == 0
     assert launches.pop("expand_pairing") == 0
@@ -1031,8 +1032,9 @@ def test_cuda_graph_two_replays_beziers(fine_impl):
 @pytest.mark.cuda
 @pytest.mark.parametrize("fine_impl", ["entries", "dense"])
 def test_cuda_render_updated_equals_fresh_render(fine_impl):
-    """render_updated copies moved points (and the rebuilt segment stage)
-    into the graph's static inputs: the replay equals a fresh render."""
+    """render_updated copies moved points into the graph's static inputs,
+    whose segments the graph derives on the card: the replay equals a
+    fresh render."""
     _needs_cuda()
     scene = fixtures.make_animated_frame(0.3, size=256, n=24)
     cfg = fit_capacities(scene, RenderConfig(width=256, height=256,
@@ -1141,7 +1143,7 @@ def test_cuda_paired_fine_equals_plain(name, make, size, th, tw, mode,
     np.testing.assert_array_equal(r.render(scene),
                                   cpu_render_scene(scene, cfg))
     assert kernels.LAUNCHES["expand_pairing"] == (mode == "compact")
-    assert kernels.LAUNCHES["expand"] == 0
+    assert kernels.LAUNCHES["expand"] == 1
     assert kernels.LAUNCHES["fine_paired"] == 1
     assert kernels.LAUNCHES["fine"] == 0
 

@@ -24,6 +24,7 @@ jax = pytest.importorskip("jax")
 
 from _imgcmp import assert_images_match  # noqa: E402
 from piet_tpu.renderer import renderer as jax_renderer  # noqa: E402
+from piet_tpu_torch import tracing  # noqa: E402
 from piet_tpu_torch.config import RenderConfig  # noqa: E402
 from piet_tpu_torch.raster.cpu_fine import cpu_render_scene  # noqa: E402
 from piet_tpu_torch.renderer.capacity import fit_capacities  # noqa: E402
@@ -198,11 +199,55 @@ def test_render_sequence_matches_render_and_checks_capacity(impl):
             scenes[:2])
 
 
+#: Fixture scenes of the per-call staging test: a stroked and filled
+#: animated frame, gradients, and nested clips (group commands).
+STAGED_SCENES = ["animated seed 3", "gradients", "clip_star"]
+
+
+@pytest.mark.parametrize("impl", ["dense", "entries"])
+@pytest.mark.parametrize("name", STAGED_SCENES)
+def test_render_u32_derives_segments_in_the_step(name, impl):
+    """Renderer.render_u32 stages its scene without the host segment stage
+    (the step derives it), and the frame equals, bit for bit, the step's
+    frame of the host-staged scene and the oracle; render_updated after
+    moved geometry still equals a fresh render; tracing.SEG_STAGES
+    counts one "device" per render_u32 and one "host" per default
+    prepare_scene."""
+    scene = (_frames(1)[0] if name.startswith("animated")
+             else fixtures.get_scene(name))
+    cfg = _cfg(scene)
+    r = Renderer(cfg, device="cpu", fine_impl=impl)
+    before = dict(tracing.SEG_STAGES)
+    got = r.render_u32(scene)
+    assert r._staged.seg_pre is None
+    assert tracing.SEG_STAGES == {"host": before["host"],
+                                  "device": before["device"] + 1}
+    host = prepare_scene(scene, cfg, "cpu")
+    assert host.seg_pre is not None
+    assert tracing.SEG_STAGES == {"host": before["host"] + 1,
+                                  "device": before["device"] + 1}
+    want, _ = make_render_fn(cfg, device="cpu", fine_impl=impl)(host)
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(_rgba(got), cpu_render_scene(scene, cfg))
+    moved = dataclasses.replace(scene, points=scene.points + 2.0,
+                                bboxes=scene.bboxes + 2,
+                                widths=scene.widths * np.float32(0.5))
+    updated = r.render_updated(moved, fields=("points", "bboxes", "widths"))
+    assert r._staged.seg_pre is None
+    fresh = Renderer(cfg, device="cpu", fine_impl=impl).render_u32(moved)
+    assert torch.equal(updated, fresh)
+    np.testing.assert_array_equal(_rgba(updated),
+                                  cpu_render_scene(moved, cfg))
+    assert tracing.SEG_STAGES == {"host": before["host"] + 1,
+                                  "device": before["device"] + 2}
+
+
 @pytest.mark.parametrize("impl", ["entries", "dense"])
 def test_render_updated_equals_fresh_render(impl):
-    """render_updated copies the dirty fields (and the rebuilt segment
-    stage) into the step's static inputs: the frame equals a fresh
-    render of the updated scene, and the staged tensors stay in place."""
+    """render_updated copies the dirty fields into the step's static
+    inputs, whose segments the step derives from them: the frame equals
+    a fresh render of the updated scene, and the staged tensors stay in
+    place."""
     scene = _frames(1)[0]
     cfg = _cfg(scene)
     r = Renderer(cfg, device="cpu", fine_impl=impl)

@@ -8,6 +8,7 @@ No JAX here: the card's tests run this file with
 
 import contextlib
 import dataclasses
+import gc
 
 import pytest
 import torch
@@ -25,8 +26,10 @@ from piet_tpu_torch.scene import affine, fixtures
 from piet_tpu_torch.scene.svg import make_tiger
 
 SIZE = 64
-HOST_SPANS = ("piet.render_u32", "piet.prepare", "piet.prepare.seg_pre",
-              "piet.upload", "piet.stats_read")
+#: The spans of a render_u32 call: its scene is staged for the call,
+#: without the host segment stage, so no ``piet.prepare.seg_pre``.
+HOST_SPANS = ("piet.render_u32", "piet.prepare", "piet.upload",
+              "piet.stats_read")
 
 
 @pytest.fixture
@@ -63,19 +66,39 @@ def test_render_u32_under_the_profiler_opens_nested_spans(renderer,
     names = [n for n, _, _ in ranges]
     for name in HOST_SPANS:
         assert name in names, names
+    assert "piet.prepare.seg_pre" not in names
     assert names.count("piet.render_u32") == 1
     (top,) = [g for g in ranges if g[0] == "piet.render_u32"]
     for g in ranges:
         assert _inside(g, top), (g, top)
-    prep = next(g for g in ranges if g[0] == "piet.prepare")
-    seg = next(g for g in ranges if g[0] == "piet.prepare.seg_pre")
-    assert _inside(seg, prep)
     # The prepare, the uploads and the stats read do not overlap.
     flat = sorted((g for g in ranges if g[0] in ("piet.prepare",
                                                   "piet.stats_read")),
                   key=lambda g: g[1])
     assert flat[0][0] == "piet.prepare" and flat[-1][0] == "piet.stats_read"
     assert flat[0][2] <= flat[-1][1]
+    for name in set(names):
+        seconds, count = tracing.SPANS[name]
+        assert count == names.count(name) and seconds > 0
+
+
+@pytest.mark.parametrize("seg_pre", [True, False])
+def test_prepare_scene_opens_seg_pre_inside_prepare(renderer, clean_tables,
+                                                    seg_pre):
+    """A stage-once caller's prepare_scene (the default, with the host
+    segment stage) opens ``piet.prepare.seg_pre`` inside
+    ``piet.prepare``; without the host stage it opens none."""
+    r, scene = renderer
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        prepare_scene(scene, r.config, "cpu", seg_pre=seg_pre)
+    ranges = _ranges(prof)
+    names = [n for n, _, _ in ranges]
+    assert names.count("piet.prepare") == 1
+    assert names.count("piet.prepare.seg_pre") == int(seg_pre), names
+    if seg_pre:
+        prep = next(g for g in ranges if g[0] == "piet.prepare")
+        seg = next(g for g in ranges if g[0] == "piet.prepare.seg_pre")
+        assert _inside(seg, prep)
     for name in set(names):
         seconds, count = tracing.SPANS[name]
         assert count == names.count(name) and seconds > 0
@@ -91,8 +114,12 @@ def test_spans_cost_no_range_and_record_nothing_while_off(renderer,
 
     monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
     monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    before = dict(tracing.SEG_STAGES)
     r.render_u32(scene)
     assert tracing.SPANS == {}
+    # The counters are always on.
+    assert tracing.SEG_STAGES == {"host": before["host"],
+                                  "device": before["device"] + 1}
     assert tracing.span("piet.anything") is tracing.span("piet.other")
 
 
@@ -175,6 +202,30 @@ def test_captures_count_once_per_signature_and_keep_their_map(clean_tables,
     assert [e.stages for e in step._entries.values()] == [want, want]
 
 
+def test_a_capture_runs_with_the_cyclic_collector_off(clean_tables,
+                                                       monkeypatch):
+    """A collection inside a capture could free an unreferenced step's
+    graph, which a capturing stream does not permit: the eager pre-run
+    runs with the collector on, the capture with it off, and it is on
+    again after."""
+    cuda = _FakeCuda()
+    seen = []
+
+    def fn(x):
+        seen.append(gc.isenabled())
+        return x + 1
+
+    step = CapturedStep(fn, "cpu")
+    x = torch.ones(4)
+    step.static_inputs(x)
+    step.device = torch.device("cuda")
+    cuda.install(monkeypatch)
+    assert gc.isenabled()
+    for _ in range(2):
+        assert torch.equal(step(x), x + 1)
+    assert seen == [True, False] and gc.isenabled()
+
+
 def test_a_map_ends_at_its_last_mark_when_nothing_follows(clean_tables,
                                                            monkeypatch):
     cuda = _FakeCuda()
@@ -190,8 +241,9 @@ def test_a_map_ends_at_its_last_mark_when_nothing_follows(clean_tables,
 
 def _tiger_step(kind):
     """(the frame step's CapturedStep, a call that replays it, its step
-    function on its static inputs) for the 512^2 tiger, static or spun on
-    the card."""
+    function on its static inputs) for the 512^2 tiger: static (staged
+    once), rebuilt (staged by each ``Renderer.render_u32`` call) or spun
+    on the card."""
     scene = make_tiger(scale=1.0)
     cfg = fit_capacities(scene, RenderConfig(width=512, height=512),
                          bucket=True)
@@ -199,6 +251,10 @@ def _tiger_step(kind):
         render = make_render_fn(cfg, "cuda")
         x = render.stage(prepare_scene(scene, cfg, "cuda"))
         return render.step, lambda: render.flat(x), lambda: render.step.fn(x)
+    if kind == "rebuilt":
+        r = Renderer(cfg, "cuda")
+        step = r._render.step
+        return step, lambda: r.render_u32(scene), lambda: step.fn(r._staged)
     cfg = dataclasses.replace(cfg, max_hits=8 * cfg.max_hits,
                               max_candidates=8 * cfg.max_candidates)
     render_t = affine.make_affine_render_fn(
@@ -208,12 +264,13 @@ def _tiger_step(kind):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["static", "affine"])
+@pytest.mark.parametrize("kind", ["static", "rebuilt", "affine"])
 def test_cuda_stage_map_covers_the_frame_graph_in_order(kind):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     step, call, fn = _tiger_step(kind)
     captures = tracing.graph_captures
+    derived = tracing.SEG_STAGES["device"]
     call()
     assert tracing.graph_captures == captures + 1
     (entry,) = step._entries.values()
@@ -225,7 +282,9 @@ def test_cuda_stage_map_covers_the_frame_graph_in_order(kind):
     coarse = names[1:-2] if kind == "affine" else names[:-2]
     if kind == "affine":
         assert names[0] == "animate"
-        assert "seg_expand" in coarse and "seg_rows" in coarse
+    # Only the scene staged once carries the host segment stage.
+    assert ("seg_expand" in coarse and "seg_rows" in coarse) == (
+        kind != "static"), names
     # The device segment derivation ends with its rows (no probe there).
     order = list(PROBE_STAGES)
     order.insert(order.index("seg_rects") + 1, "seg_rows")
@@ -236,3 +295,5 @@ def test_cuda_stage_map_covers_the_frame_graph_in_order(kind):
         call()
     torch.cuda.synchronize()
     assert tracing.graph_captures == captures + 1
+    # One scene a rebuilt frame, its segment stage derived on the card.
+    assert tracing.SEG_STAGES["device"] == derived + 4 * (kind == "rebuilt")
