@@ -57,6 +57,7 @@ import torch
 from .. import tracing
 from ..config import RenderConfig
 from ..scene.color import decode_color_linear
+from ..scene.scene import FLAG_FILL_CONT, FLAG_FILL_FINAL
 
 from ..ops.coarse import DeviceScene, SegPre, coarse_rasterize
 from ..ops.fine import fine_rasterize_entries
@@ -143,7 +144,8 @@ def prepare_scene(scene, config: RenderConfig, device="cuda",
     scene is staged for one frame (``Renderer.render_u32``) or its
     geometry moves on the device (scene/affine.py, scene/animate.py):
     the coarse pass then derives the segments itself.  Each call counts
-    one in ``tracing.SEG_STAGES``, under "host" or "device"."""
+    one in ``tracing.SEG_STAGES``, under "host" or "device", and adds the
+    scene's combined fills to ``tracing.COMBINED_FILLS``."""
     from .segstage import build_seg_pre
 
     with tracing.span("piet.prepare"):
@@ -156,6 +158,7 @@ def prepare_scene(scene, config: RenderConfig, device="cuda",
             tracing.SEG_STAGES["host"] += 1
         else:
             tracing.SEG_STAGES["device"] += 1
+        _count_combined_fills(scene.flags)
         host = DeviceScene(
             tags=_pad(scene.tags, NI), colors_u32=_pad(scene.colors, NI),
             colors_lin=_pad(decode_color_linear(scene.colors), NI),
@@ -166,6 +169,18 @@ def prepare_scene(scene, config: RenderConfig, device="cuda",
             grads=_pad(scene.grads, NI), n_items=np.int32(scene.n_items),
             seg_pre=sp)
         return device_scene_from_numpy(host, device)
+
+
+def _count_combined_fills(flags: np.ndarray) -> None:
+    """Add a staged scene's combined fills to ``tracing.COMBINED_FILLS``
+    (host flags only: no device op)."""
+    groups = int(np.count_nonzero(flags & FLAG_FILL_FINAL))
+    if groups:
+        c = tracing.COMBINED_FILLS
+        c["scenes"] += 1
+        c["groups"] += groups
+        c["subpaths"] += int(np.count_nonzero(
+            flags & (FLAG_FILL_CONT | FLAG_FILL_FINAL)))
 
 
 def _stage_seg_pre(sp, device) -> SegPre:

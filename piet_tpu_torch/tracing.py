@@ -27,7 +27,8 @@ spans, all prefixed ``piet.``:
 (kernels.py); :data:`graph_captures` and :data:`capture_s` count the CUDA
 graphs captured and the host seconds they took; :data:`SEG_STAGES`
 counts the scenes ``prepare_scene`` staged, by where their segment stage
-is computed.  They are always on.
+is computed, and :data:`COMBINED_FILLS` the combined multi-subpath fills
+among them.  They are always on.
 
 **Stage map.**  A CUDA graph replay runs hundreds of device ops whose
 kernel names the stages share, and a profiler range opened while a graph
@@ -113,6 +114,12 @@ LAUNCHES = {"candfuse": 0, "hitfuse": 0, "sort": 0, "fine": 0, "expand": 0,
 #: computed: "host" (``build_seg_pre``, staged with the scene) or "device"
 #: (no ``seg_pre``: the frame derives it, ``coarse.derive_seg_stage``).
 SEG_STAGES = {"host": 0, "device": 0}
+
+#: Combined multi-subpath fills in the scenes ``prepare_scene`` staged,
+#: counted from the host flags: "scenes" that hold one, their "groups"
+#: (FLAG_FILL_FINAL items) and "subpaths" (FLAG_FILL_CONT and
+#: FLAG_FILL_FINAL items).
+COMBINED_FILLS = {"scenes": 0, "groups": 0, "subpaths": 0}
 
 #: CUDA graphs captured by ``CapturedStep`` in this process, and the host
 #: seconds of their eager pre-runs and captures.
