@@ -634,8 +634,9 @@ def main() -> int:
     import torch.nn.functional as F
     from piet_tpu_torch import kernels
     from piet_tpu_torch.host import cpu_render_scene, make_tiger
-    from piet_tpu_torch.ops import (candfuse, coarse, expand, fine, fine_xla,
-                                    gatherm, hitfuse, keyed, pairing, sort)
+    from piet_tpu_torch.ops import (candfuse, coarse, dense_tail, expand,
+                                    fine, fine_xla, gatherm, hitfuse, keyed,
+                                    pairing, sort)
     from piet_tpu_torch.raster.synth_entries import synth_entry_streams
     from piet_tpu_torch.raster.synth_ptcl import synth_dense_ptcl
     from piet_tpu_torch.renderer.renderer import (Renderer,
@@ -730,6 +731,18 @@ def main() -> int:
         dense_in.append(dense_inputs(gr.prepare(group_scenes[name]),
                                      gr.config))
     tiger_dense = dense_in[0]
+    # The dense tail on the sorted records of the static tiger's and the
+    # group fixtures' dense passes.
+    tail_cases = []
+    for st, c in [(staged, cfg)] + [
+            (gr.prepare(group_scenes[n]), gr.config)
+            for n, gr in group_renderers.items()]:
+        t = {}
+        coarse.coarse_rasterize(st, output="dense",
+                                cmd_capacity=c.cmd_capacity, taps=t,
+                                **coarse_kw(c))
+        tail_cases.append(t["dense_tail"])
+    tail_in, tail_live, tail_kw = tail_cases[0]
     # Both instantiations beyond the tiger at 32x128: its dense PTCL at
     # 16x16 tiles (4 pixels a thread) and the synthetic PTCLs.
     r16 = Renderer.for_scene(scene, 1664, 1664, tile_height=16,
@@ -916,6 +929,11 @@ def main() -> int:
     pair_fine_bytes = (nbytes(*pf_args[:3])
                        + row_bytes(int(pf_args[1].sum()), pf_args[3])
                        + img_bytes)
+    # The dense tail on the static tiger: every slot written once (a tag
+    # and 12 operand words) with the per-tile words, each live record and
+    # its source index read once.
+    tail_bytes = (tail_kw["n_tiles"] * (tail_kw["cmd_capacity"] * 52 + 12)
+                  + int(tail_live.sum()) * (64 + 4))
     # The compaction on the tiger's compact pass: the keep mask read (a
     # byte a row), each kept row read once, every output row and the total
     # written.
@@ -1059,6 +1077,20 @@ def main() -> int:
                                                         gather_lib_idx)
                                   for i in ii),
             bytes=gather_bytes),
+        # Compared on the tiger's and the group fixtures' records; timed
+        # on the tiger's.  No TPU kernel: the JAX pass's dense tail is XLA.
+        "dense_tail": dict(
+            route="cuda", source="piet_tpu_torch/csrc/dense_tail.cu",
+            replaces="none (XLA ops of piet_tpu/ops/coarse.py)",
+            run=lambda: sum((dense_tail.dense_tail(*a, **k)
+                             for a, _, k in tail_cases), ()),
+            plain=lambda: sum((coarse._dense_ptcl(*a, live, **k)
+                               for a, live, k in tail_cases), ()),
+            time=lambda: dense_tail.dense_tail(*tail_in, **tail_kw),
+            time_plain=lambda: coarse._dense_ptcl(*tail_in, tail_live,
+                                                  **tail_kw),
+            library=None,
+            bytes=tail_bytes),
         # Compared in both instantiations (the group one on the tiger's
         # and the fixtures' PTCLs, both on the tiger's, the 16x16 tiger's
         # and the synthetic ones); timed as the dense frame runs it: the
@@ -1139,7 +1171,7 @@ def main() -> int:
         assert launches["expand"] == 1, launches
         assert launches["fine_dense"] == 0, launches
         assert all(v > 0 for k, v in frame_counts(launches).items()
-                   if k not in ("fine_dense", "fine_paired",
+                   if k not in ("fine_dense", "dense_tail", "fine_paired",
                                 "expand_pairing")), launches
         assert launches["keyed"] == 1, launches
         # Kernel A one call (rows and expansion), gatherm two (endpoints,
@@ -1500,7 +1532,7 @@ def main() -> int:
               flush=True)
         assert launches["fine_dense"] == 0, launches
         assert all(v > 0 for k, v in frame_counts(launches).items()
-                   if k not in ("fine_dense", "fine_paired",
+                   if k not in ("fine_dense", "dense_tail", "fine_paired",
                                 "expand_pairing")), launches
         # Per frame: kernel A one call, gatherm two (endpoints, backdrop).
         assert launches["candfuse"] == len(T_FRAMES), launches
@@ -1816,6 +1848,8 @@ def main() -> int:
         for tag in ("tiger 1664x1664", "beziers_10k 1024x1024")]
     paths["fine_dense"] = [("static tiger 1664x1664, 1 frame, dense route",
                             dense_launches[1664, 1664]["fine_dense"])]
+    paths["dense_tail"] = [("static tiger 1664x1664, 1 frame, dense route",
+                            dense_launches[1664, 1664]["dense_tail"])]
     paths["sort"].append((
         "beziers_10k 1024x1024, 1 frame, entries route (device-memory "
         "route)", baseline["beziers_10k", "entries"][2]["sort"]))
@@ -1846,8 +1880,8 @@ def main() -> int:
 
 #: Kernels of the entries route and the dense route of a frame.
 ENTRIES_KERNELS = ("candfuse", "hitfuse", "sort", "fine", "keyed", "gatherm")
-DENSE_KERNELS = ("candfuse", "hitfuse", "sort", "fine_dense", "keyed",
-                 "gatherm")
+DENSE_KERNELS = ("candfuse", "hitfuse", "sort", "dense_tail", "fine_dense",
+                 "keyed", "gatherm")
 #: Where phase 7's command lines write their PNGs (gitignored).
 CLI_OUT = "build/chip_smoke_cli"
 
@@ -2509,7 +2543,8 @@ def phase_diag_tools(card, dev) -> dict:
 BENCH_RUNS = (([], DENSE_KERNELS, ("fine", "expand", "fine_paired",
                                    "expand_pairing")),
               (["--fine-impl", "entries"], ENTRIES_KERNELS,
-               ("fine_dense", "expand", "fine_paired", "expand_pairing")))
+               ("fine_dense", "dense_tail", "expand", "fine_paired",
+                "expand_pairing")))
 
 
 def jax_bench_keys() -> set:

@@ -8,7 +8,8 @@ item rows and their candidate expansion), kernel B (hit records), keyed
 sums, the backdrop prefix, the candidate tail commands, one stable sort
 (kernel C) and the sorted gather.  ``output="entries"`` then adds the
 ``W_RUN`` run words, per-tile ranges and the bail; ``output="dense"``
-scatters the records into (T, CAP) command lists (:func:`_dense_ptcl`).
+scatters the records into (T, CAP) command lists: one kernel on the card
+(``ops/dense_tail.py``), :func:`_dense_ptcl` on the CPU.
 Both outputs are word for word the JAX pass's
 (tests/test_torch_coarse.py, tests/test_torch_dense.py).
 
@@ -56,6 +57,7 @@ from ..scene.scene import (FLAG_BRUSH_LINEAR, FLAG_BRUSH_RADIAL,
 from .candfuse import (SCENE_FIELDS, cand_prep, cand_prep_expand,
                        cand_records_fused_plain)
 from .cmd_math import _f, div_det, dot2_det
+from .dense_tail import dense_tail
 from .expand import expand_rows
 from .gatherm import backdrop_from_csum, gather_endpoints
 from .hitfuse import hit_records_fused, split_fused
@@ -73,7 +75,7 @@ F32, I32 = torch.float32, torch.int32
 #: group's first name: kernel A is "cand_expand"; kernel B "hit_expand"
 #: (JAX's "hit_gather" and "hit_tests" too); the one-call keyed sums
 #: "cand_emit" (and "del_scatter").  "tile_reduce" runs to the end of the
-#: pass (the bail, and on the dense route the slot scatters).  The
+#: pass (the bail, and on the dense route the dense tail).  The
 #: segment stages ("seg_expand" .. "seg_rects") run only where the
 #: segments are derived on the device; "pairing" only on a paired entries
 #: pass, "runs" only on an unpaired one.
@@ -459,7 +461,9 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
     "keyed" -- the hit records, their live count and n_out; "gatherm" --
     a list of (site, arguments) of ``gatherm.SITES``, one a call;
     "expand" on the device-derived segment stage; "pairing" -- the
-    compaction's bundle and keep mask) -- for tests and chip_smoke.py.
+    compaction's bundle and keep mask; "dense_tail" -- the dense tail's
+    tensors, the live mask its plain version reads, and its keywords) --
+    for tests and chip_smoke.py.
 
     ``with_probes=True`` adds ``diag["probes"]``: name -> the output
     tensors of each stage that ran (:data:`PROBE_STAGES`), in order.
@@ -715,10 +719,6 @@ def _coarse_pass(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
     e_rows = all_rows[sorted_idx.long()]
     stream16 = W(live[:, None], e_rows, 0)
     probe("sorted_gather", stream16)
-    e_meta = stream16[:, W_META].view(F32).to(I32)
-    e_ncmds = e_meta & META_NCMDS_MASK
-    e_is_opaque = (e_meta & META_OPAQUE_BIT) != 0
-    e_is_clear = (e_meta & META_CLEAR_BIT) != 0
     diag = {
         "n_segments": n_segs[0], "n_hits": n_hits[0],
         "n_candidates": n_cand[0], "n_deltas": n_deltas,
@@ -727,11 +727,21 @@ def _coarse_pass(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
         "cand_overflow": torch.clamp(n_cand[0] - max_candidates, min=0),
     }
     if output == "dense":
-        return _dense_ptcl(stream16, sorted_idx, live, e_tile, e_ncmds,
-                           e_is_opaque, e_is_clear, c_color_bits, diag,
-                           n_tiles=n_tiles, max_hits=max_hits,
-                           cmd_capacity=cmd_capacity, probe=probe)
+        tail = (stream16, sorted_idx, e_tile, c_color_bits)
+        kw = dict(n_tiles=n_tiles, max_hits=max_hits,
+                  cmd_capacity=cmd_capacity)
+        if taps is not None:
+            taps["dense_tail"] = (tail, live, kw)
+        if kernels.on_cuda(*tail):
+            ptcl = dense_tail(*tail, **kw)
+        else:
+            ptcl = _dense_ptcl(*tail, live, **kw)
+        diag["live_cmds"] = ptcl[2].sum()
+        out = CoarseOutput(*ptcl, diag=diag)
+        probe("tile_reduce", out.tags, out.args, out.counts)
+        return out
 
+    e_ncmds, e_is_opaque, e_is_clear = _meta_bits(stream16)
     if pair_mode != "off":
         p = pair_entries(stream16, sorted_keys, live, e_tile, e_ncmds,
                          e_is_opaque, e_is_clear, n_tiles, mode=pair_mode,
@@ -815,13 +825,43 @@ def _run_words(stream16: torch.Tensor, live: torch.Tensor,
     return torch.cat([stream16[:, :W_RUN], _bits(w_run)[:, None]], dim=1)
 
 
-def _dense_ptcl(rows, sorted_idx, live, e_tile, e_ncmds, e_is_opaque,
-                e_is_clear, c_color_bits, diag, *, n_tiles: int,
-                max_hits: int, cmd_capacity: int,
-                probe: _Probes = _NO_PROBES) -> CoarseOutput:
+def _meta_bits(stream16: torch.Tensor):
+    """Each entry's command count, opaque bit and clearing bit, from its
+    meta word (an integer-valued f32)."""
+    e_meta = stream16[:, W_META].view(F32).to(I32)
+    return (e_meta & META_NCMDS_MASK, (e_meta & META_OPAQUE_BIT) != 0,
+            (e_meta & META_CLEAR_BIT) != 0)
+
+
+def _tile_maxima(e_tile, e_is_opaque, e_is_clear, n_tiles: int):
+    """Each tile's first, last, last opaque and last clearing entry, as
+    index maxima of per-entry values in f32, as the JAX pass computes them
+    (entry indices < 2^24 are exact).  An empty tile gives first E + 1 and
+    last -(E + 2); no opaque entry -1, no clearing one -2."""
+    E = e_tile.shape[0]
+    dev = e_tile.device
+    seg_tile = torch.clamp(e_tile, max=n_tiles).long()
+    eidx_f = torch.arange(E, dtype=F32, device=dev)
+    packed = torch.stack(
+        [-eidx_f - 1.0, eidx_f,
+         e_is_opaque.to(F32) * (eidx_f + 1.0) - 1.0,
+         e_is_clear.to(F32) * (eidx_f + 2.0) - 2.0], dim=1)
+    red_f = torch.full((n_tiles + 1, 4), -_INF, dtype=F32, device=dev)
+    red_f.scatter_reduce_(0, seg_tile[:, None].expand(E, 4), packed, "amax",
+                          include_self=False)
+    red = torch.clamp(red_f[:n_tiles], min=float(-(E + 2))).to(I32)
+    return (-red[:, 0] - 1, red[:, 1], torch.clamp(red[:, 2], min=-1),
+            torch.clamp(red[:, 3], min=-2))
+
+
+def _dense_ptcl(rows, sorted_idx, e_tile, c_color_bits, live, *,
+                n_tiles: int, max_hits: int, cmd_capacity: int):
     """The sorted records -> dense (T, CAP) command lists: a port of the
     dense tail of ``piet_tpu/ops/coarse.py`` (per-tile f32 index maxima,
-    command positions, the bail, and the two slot scatters).
+    command positions, the bail, and the two slot scatters).  The plain
+    version of ``ops/dense_tail.py::dense_tail``, which runs it as one
+    kernel on the card; returns its ``(tags, args, counts, solid,
+    overflow)``.
 
     ``rows`` are the sorted (E, 16) int32 records with dead rows zeroed.
     A hit record's slot 0 is its FillEdge or Line (operand words 0-6; the
@@ -834,21 +874,9 @@ def _dense_ptcl(rows, sorted_idx, live, e_tile, e_ncmds, e_is_opaque,
     E = rows.shape[0]
     cap = cmd_capacity
     rows_f = rows.view(F32)
-    # Per-tile first/last/last-opaque/last-clearing entry as index maxima
-    # of per-entry values, in f32 as the JAX pass computes them (entry
-    # indices < 2^24 are exact); empty tiles reduce to -inf.
-    seg_tile = torch.clamp(e_tile, max=n_tiles).long()
-    eidx_f = torch.arange(E, dtype=F32, device=dev)
-    packed = torch.stack(
-        [-eidx_f - 1.0, eidx_f,
-         e_is_opaque.to(F32) * (eidx_f + 1.0) - 1.0,
-         e_is_clear.to(F32) * (eidx_f + 2.0) - 2.0], dim=1)
-    red_f = torch.full((n_tiles + 1, 4), -_INF, dtype=F32, device=dev)
-    red_f.scatter_reduce_(0, seg_tile[:, None].expand(E, 4), packed, "amax",
-                          include_self=False)
-    red = torch.clamp(red_f[:n_tiles], min=float(-(E + 2))).to(I32)
-    first_raw = -red[:, 0] - 1
-    last_raw = red[:, 1]
+    e_ncmds, e_is_opaque, e_is_clear = _meta_bits(rows)
+    first_raw, last_raw, opq_e, clr_e = _tile_maxima(
+        e_tile, e_is_opaque, e_is_clear, n_tiles)
     has_entries = last_raw >= 0
     first_c = torch.clamp(first_raw, 0, E - 1).long()
     last_c = torch.clamp(last_raw, 0, E - 1).long()
@@ -856,8 +884,6 @@ def _dense_ptcl(rows, sorted_idx, live, e_tile, e_ncmds, e_is_opaque,
     tile_cmd_base = torch.where(has_entries, cpos_excl[first_c], 0)
     tile_cmd_total = torch.where(
         has_entries, cpos_excl[last_c] + e_ncmds[last_c] - tile_cmd_base, 0)
-    opq_e = torch.clamp(red[:, 2], min=-1)
-    clr_e = torch.clamp(red[:, 3], min=-2)
     best_entry = torch.clamp(opq_e, min=0).long()
     e_tile_c = torch.clamp(e_tile, max=n_tiles - 1).long()
     e_pos = cpos_excl - tile_cmd_base[e_tile_c]
@@ -911,9 +937,5 @@ def _dense_ptcl(rows, sorted_idx, live, e_tile, e_ncmds, e_is_opaque,
                  s1_args)
     tags = out_rows[:dump, 0].reshape(n_tiles, cap).contiguous()
     args = out_rows[:dump, 1:].reshape(n_tiles, cap * 12).contiguous()
-    diag["live_cmds"] = counts.sum()
-    out = CoarseOutput(tags=tags, args=args.view(F32), counts=counts.to(I32),
-                       solid=solid.to(I32), overflow=overflow.to(I32),
-                       diag=diag)
-    probe("tile_reduce", out.tags, out.args, out.counts)
-    return out
+    return (tags, args.view(F32), counts.to(I32), solid.to(I32),
+            overflow.to(I32))

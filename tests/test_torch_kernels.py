@@ -570,6 +570,7 @@ def test_cuda_animated_frame_equals_oracle(t):
     img, _ = render_t(t)
     launches = dict(kernels.LAUNCHES)
     assert launches.pop("fine_dense") == 0     # the entries route
+    assert launches.pop("dense_tail") == 0
     assert launches.pop("fine_paired") == 0    # an unpaired stream
     assert launches.pop("expand_pairing") == 0
     assert all(v > 0 for k, v in launches.items()
@@ -657,6 +658,7 @@ def test_cuda_render_bitwise_equals_oracle(name, make, size, th):
     launches = dict(kernels.LAUNCHES)
     assert launches.pop("expand") == 1
     assert launches.pop("fine_dense") == 0
+    assert launches.pop("dense_tail") == 0
     assert launches.pop("fine_paired") == 0
     assert launches.pop("expand_pairing") == 0
     assert all(v > 0 for k, v in launches.items()
