@@ -42,7 +42,7 @@ import traceback
 
 import numpy as np
 
-from . import kernels
+from . import tracing
 from .cli import FINE_IMPL_NAMES, card_line
 from .config import RenderConfig
 from .renderer.capacity import fit_capacities
@@ -111,7 +111,7 @@ def bench_config(name, scene, width, height, *, device, fine_impl="auto",
     ``record``, a dict, receives the frame (``"image"``, (H, W, 4)
     uint8, from the capturing call), ``"config"``, ``"scene"`` and the
     kernels' ``"launches"`` during the call."""
-    before = dict(kernels.LAUNCHES)
+    before = dict(tracing.LAUNCHES)
     cfg = fit_capacities(scene, RenderConfig(
         width=width, height=height, tile_height=32, tile_width=128,
         cmd_capacity=1024))
@@ -125,7 +125,7 @@ def bench_config(name, scene, width, height, *, device, fine_impl="auto",
     if record is not None:
         record.update(image=renderer._rgba8(img), config=cfg, scene=scene,
                       launches={k: n - before[k]
-                                for k, n in kernels.LAUNCHES.items()})
+                                for k, n in tracing.LAUNCHES.items()})
     return ms, cfg, stats
 
 

@@ -23,8 +23,8 @@
 //   needs zeroing.  A thread issues every load of its item's row before
 //   anything waits on one (one round trip, overlapping cand_count) and
 //   stages the row in shared memory (64 KB a block); the block's rows
-//   then leave as one contiguous run of 16-byte stores.  Measured by
-//   ab_kernels.py --cand-variants: each thread storing its own row (32
+//   then leave as one contiguous run of 16-byte stores.  Measured on the
+//   H100 against design variants: each thread storing its own row (32
 //   lines a warp store) took 4.4 us more of the tiger's call; 512 items a
 //   block beat 1,024 on the tiger and on beziers_10k.
 // - cand_expand: item i owns the row-major run of slots [excl[i],

@@ -16,14 +16,14 @@ the sources and flags, so a rebuild happens only when they change.
 
 Dispatch rule shared by every kernel wrapper (:func:`on_cuda`): a CPU
 tensor runs the plain PyTorch version; a CUDA tensor launches the kernel
-or raises.  Nothing falls back.  Each wrapper counts its launches in
-:data:`LAUNCHES` (kept in tracing.py with the port's other counters).
+or raises.  Nothing falls back.  :func:`launch` counts each launch in
+``tracing.LAUNCHES``, with the port's other counters.
 
 A wrapper counts on the host, when it enqueues its kernel.  Under CUDA
 graph capture (renderer/graph.py) nothing runs: the capture's counts are
-taken apart (:func:`launches_apart`) and added back at every replay
-(:func:`add_launches`), so :data:`LAUNCHES` keeps counting the launches
-that ran.
+taken apart (``tracing.launches_apart``) and added back at every replay
+(``tracing.add_launches``), so ``tracing.LAUNCHES`` keeps counting the
+launches that ran.
 """
 
 from __future__ import annotations
@@ -38,10 +38,7 @@ from pathlib import Path
 
 import torch
 
-# The launch counters live with the port's other counters; their names
-# stay importable from here.
-from .tracing import (LAUNCHES, add_launches, launches_apart,  # noqa: F401
-                      reset_launches)
+from . import tracing
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "piet_tpu_torch"
@@ -226,4 +223,4 @@ def launch(kernel: str, entry: str, *args) -> None:
     rc = getattr(library(), entry)(*args, stream())
     if rc != 0:
         raise RuntimeError(f"{entry} failed: CUDA error {rc}")
-    LAUNCHES[kernel] += 1
+    tracing.LAUNCHES[kernel] += 1

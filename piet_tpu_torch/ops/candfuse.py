@@ -8,20 +8,24 @@ words are integers or NaN-pattern colours that must not pass through
 float arithmetic.
 
 The CUDA kernels are ``csrc/candfuse.cu``: ``cand_prep`` builds the item
-rows from the scene's fields (:func:`cand_prep`, the glue of
-``ops/coarse.py::cand_inputs``, whose plain version is
-``cand_inputs_plain``), ``cand_expand`` expands them
-(:func:`cand_records_fused`; plain version
+rows from the scene's fields (:func:`cand_prep`; plain version
+:func:`cand_inputs_plain`, the JAX pass's glue), ``cand_expand`` expands
+them (:func:`cand_records_fused`; plain version
 :func:`cand_records_fused_plain`, bit for bit).  :func:`cand_prep_expand`
 runs both in one call, as the coarse pass does: the expansion is a
-programmatic dependent launch behind the rows.
+programmatic dependent launch behind the rows (plain version
+:func:`cand_prep_expand_plain`).  Each wrapper runs its plain version on
+CPU tensors and launches on CUDA tensors (``kernels.on_cuda``).
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from .. import kernels
+from .cmd_math import _bits
 
 #: Words per candidate row (ops/coarse.py::cand_pack).
 CAND_WORDS = 32
@@ -40,6 +44,15 @@ SCENE_FIELDS = (("tags", I32, ()), ("colors_u32", I32, ()),
                 ("bboxes", I32, (4,)), ("pt_offset", I32, ()),
                 ("n_pts", I32, ()), ("flags", I32, ()), ("clips", F32, (4,)),
                 ("grads", F32, (8,)))
+
+
+class CandInputs(NamedTuple):
+    """Kernel A's item rows, built from the scene (ops/coarse.py
+    cand_pack)."""
+    cand_pack: torch.Tensor   # (NI, 32) int32 bit patterns
+    counts: torch.Tensor      # (NI,) int32
+    excl: torch.Tensor        # (NI,) int32
+    total: torch.Tensor       # (1,) int32
 
 
 def fdivmod(local: torch.Tensor, w: torch.Tensor):
@@ -110,23 +123,80 @@ def cand_records_fused(cand_pack, counts, excl, total, row0: int, cap: int,
     return (out[0].view(F32),) + out[1:]
 
 
+def _item_tile_rect(bboxes, tw: int, th: int, tiles_x: int, tiles_y: int,
+                    active, row0: int):
+    """Quantized item bbox -> inclusive tile rect, windowed to tile rows
+    [row0, row0 + tiles_y); empty if offscreen."""
+    x0 = torch.clamp(torch.div(bboxes[:, 0], tw, rounding_mode="floor"),
+                     min=0)
+    y0 = torch.clamp(torch.div(bboxes[:, 1], th, rounding_mode="floor"),
+                     min=row0)
+    x1 = torch.clamp(torch.div(bboxes[:, 2], tw, rounding_mode="floor"),
+                     max=tiles_x - 1)
+    y1 = torch.clamp(torch.div(bboxes[:, 3], th, rounding_mode="floor"),
+                     max=row0 + tiles_y - 1)
+    w = torch.where(active, torch.clamp(x1 - x0 + 1, min=0), 0)
+    h = torch.where(active, torch.clamp(y1 - y0 + 1, min=0), 0)
+    return x0, y0, x1, y1, w, h
+
+
+def cand_inputs_plain(scene, *, tiles_x: int, tiles_y: int, tile_w: int,
+                      tile_h: int, row0: int = 0) -> CandInputs:
+    """Plain PyTorch version of :func:`cand_prep` (the JAX pass's glue,
+    ``piet_tpu/ops/coarse.py:324-346``)."""
+    NI = scene.tags.shape[0]
+    dev = scene.tags.device
+    item_ids = torch.arange(NI, dtype=I32, device=dev)
+    active = (item_ids < scene.n_items) & (scene.tags > 0)
+    tags = torch.where(active, scene.tags, 0)
+    bx0, by0, bx1, by1, bw, bh = _item_tile_rect(
+        scene.bboxes, tile_w, tile_h, tiles_x, tiles_y, active, row0)
+    counts = bw * bh
+    incl = torch.cumsum(counts, 0, dtype=counts.dtype)
+    excl = incl - counts
+    item_pack = torch.stack([tags, scene.n_pts, scene.pt_offset, excl,
+                             bx0, by0, bx1, by1, bw], dim=1)
+    cand_pack = torch.cat(
+        [_bits(scene.colors_lin), _bits(scene.bboxes.to(F32)),
+         _bits(0.5 * scene.widths)[:, None], scene.colors_u32[:, None],
+         _bits(scene.flags.to(F32))[:, None], _bits(scene.clips),
+         item_pack, item_ids[:, None], _bits(scene.grads[:, :7])],
+        dim=1).contiguous()
+    return CandInputs(cand_pack, counts, excl, incl[-1:].clone())
+
+
 def cand_prep(scene, *, tiles_x: int, tiles_y: int, tile_w: int,
-              tile_h: int, row0: int = 0):
-    """Kernel A's item rows on the card, one call: the glue of
-    ``ops/coarse.py::cand_inputs`` (its plain version
-    ``cand_inputs_plain``).
+              tile_h: int, row0: int = 0) -> CandInputs:
+    """Per-item candidate rows: colours, bbox, half width, colour bits,
+    flags, clip rect, the packed item ints, the item id and the gradient
+    payload -- every attribute the tail commands need rides one
+    expansion.  On the card one launch of kernel A's ``cand_prep``.
 
     ``scene`` has the DeviceScene fields of :data:`SCENE_FIELDS` and
-    ``n_items`` (one int32), contiguous, on one CUDA device.  Returns the
-    (NI, 32) int32 rows, the (NI,) counts and exclusive offsets and the
-    (1,) live total.
+    ``n_items`` (one int32); on the card they are contiguous, on one
+    CUDA device.  Returns the (NI, 32) int32 rows, the (NI,) counts and
+    exclusive offsets and the (1,) live total.
     """
+    kw = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w,
+              tile_h=tile_h, row0=row0)
+    if not _scene_on_cuda(scene):
+        return cand_inputs_plain(scene, **kw)
     fields, rows, sums = _prep_args(scene, tile_w, tile_h)
     kernels.launch("candfuse", "piet_cand_prep", *_ptrs(fields + [sums]
                                                         + rows),
                    rows[1].shape[0], tiles_x, tiles_y, tile_w, tile_h,
                    int(row0))
-    return tuple(rows)
+    return CandInputs(*rows)
+
+
+def cand_prep_expand_plain(scene, *, tiles_x: int, tiles_y: int,
+                           tile_w: int, tile_h: int, row0: int, cap: int):
+    """Plain PyTorch version of :func:`cand_prep_expand`."""
+    ci = cand_inputs_plain(scene, tiles_x=tiles_x, tiles_y=tiles_y,
+                           tile_w=tile_w, tile_h=tile_h, row0=row0)
+    ca, tile, ty, _ = cand_records_fused_plain(*ci, row0, cap,
+                                               tiles_x=tiles_x)
+    return ci, ca, tile, ty
 
 
 def cand_prep_expand(scene, *, tiles_x: int, tiles_y: int, tile_w: int,
@@ -136,12 +206,21 @@ def cand_prep_expand(scene, *, tiles_x: int, tiles_y: int, tile_w: int,
     ``cap`` records, without ``cand_tx``, as a programmatic dependent
     launch behind them.  Returns ``(rows, ca, cand_tile, cand_ty)``:
     ``rows`` as :func:`cand_prep` returns them."""
+    if not _scene_on_cuda(scene):
+        return cand_prep_expand_plain(scene, tiles_x=tiles_x,
+                                      tiles_y=tiles_y, tile_w=tile_w,
+                                      tile_h=tile_h, row0=row0, cap=cap)
     fields, rows, sums = _prep_args(scene, tile_w, tile_h)
     out = _records(cap, rows[0].device, 3)
     kernels.launch("candfuse", "piet_cand_stage", *_ptrs(
         fields + [sums] + rows + list(out)), rows[1].shape[0], cap, tiles_x,
         tiles_y, tile_w, tile_h, int(row0))
-    return (tuple(rows), out[0].view(F32)) + out[1:]
+    return (CandInputs(*rows), out[0].view(F32)) + out[1:]
+
+
+def _scene_on_cuda(scene) -> bool:
+    return kernels.on_cuda(*(getattr(scene, f) for f, _, _ in SCENE_FIELDS),
+                           scene.n_items)
 
 
 def _ptrs(tensors):
@@ -163,8 +242,6 @@ def _prep_args(scene, tile_w: int, tile_h: int):
     """The scene's fields (checked) and n_items, cand_prep's outputs and
     its per-block scratch."""
     fields = [getattr(scene, name) for name, _, _ in SCENE_FIELDS]
-    if not kernels.on_cuda(*fields, scene.n_items):
-        raise ValueError("cand_prep runs on CUDA tensors only")
     ni = scene.tags.shape[0]
     for (name, dtype, tail), t in zip(SCENE_FIELDS, fields):
         kernels.check_cuda_tensor(t, dtype, name, (ni,) + tail)

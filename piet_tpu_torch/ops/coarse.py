@@ -8,8 +8,9 @@ item rows and their candidate expansion), kernel B (hit records), keyed
 sums, the backdrop prefix, the candidate tail commands, one stable sort
 (kernel C) and the sorted gather.  ``output="entries"`` then adds the
 ``W_RUN`` run words, per-tile ranges and the bail; ``output="dense"``
-scatters the records into (T, CAP) command lists: one kernel on the card
-(``ops/dense_tail.py``), :func:`_dense_ptcl` on the CPU.
+scatters the records into (T, CAP) command lists (``ops/dense_tail.py``).
+Each stage is one call, and each called op picks its kernel or its plain
+version from its tensors' device (``kernels.on_cuda``).
 Both outputs are word for word the JAX pass's
 (tests/test_torch_coarse.py, tests/test_torch_dense.py).
 
@@ -39,12 +40,10 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .. import kernels, tracing
+from .. import tracing
 from ..layout.entry_stream import (ENTRY_WORDS, META_CLEAR_BIT,
-                                   META_NCMDS_MASK, META_OPAQUE_BIT,
-                                   N_S0_ARGS, N_S1_ARGS, RUN_CAP, W_BAIL,
-                                   W_META, W_RUN, W_S0_ARG, W_S0_TAG,
-                                   W_S1_ARG, W_S1_TAG)
+                                   META_OPAQUE_BIT, RUN_CAP, W_BAIL, W_RUN,
+                                   W_S0_TAG, W_S1_TAG)
 from ..raster.ptcl import (CMD_BEGIN_CLIP, CMD_BEGIN_LAYER, CMD_CIRCLE,
                            CMD_DRAW_FILL, CMD_DRAW_LIN_GRAD,
                            CMD_DRAW_RAD_GRAD, CMD_END_CLIP, CMD_END_LAYER,
@@ -54,10 +53,9 @@ from ..scene.scene import (FLAG_BRUSH_LINEAR, FLAG_BRUSH_RADIAL,
                            FLAG_FILL_CONT, FLAG_FILL_FINAL, FLAG_IN_GROUP,
                            FLAG_POP_LAYER, TAG_CIRCLE, TAG_CLIP, TAG_FILL,
                            TAG_LAYER, TAG_LINE, TAG_POLY, TAG_POP)
-from .candfuse import (SCENE_FIELDS, cand_prep, cand_prep_expand,
-                       cand_records_fused_plain)
+from .candfuse import cand_prep_expand
 from .cmd_math import _f, div_det, dot2_det
-from .dense_tail import dense_tail
+from .dense_tail import dense_tail, meta_bits
 from .expand import expand_rows
 from .gatherm import backdrop_from_csum, gather_endpoints
 from .hitfuse import hit_records_fused, split_fused
@@ -185,94 +183,6 @@ def _bits(x: torch.Tensor) -> torch.Tensor:
 def _exclusive_cumsum(x: torch.Tensor):
     c = torch.cumsum(x, 0, dtype=x.dtype)
     return c - x, c
-
-
-def _item_tile_rect(bboxes, tw: int, th: int, tiles_x: int, tiles_y: int,
-                    active, row0: int):
-    """Quantized item bbox -> inclusive tile rect, windowed to tile rows
-    [row0, row0 + tiles_y); empty if offscreen."""
-    x0 = torch.clamp(torch.div(bboxes[:, 0], tw, rounding_mode="floor"),
-                     min=0)
-    y0 = torch.clamp(torch.div(bboxes[:, 1], th, rounding_mode="floor"),
-                     min=row0)
-    x1 = torch.clamp(torch.div(bboxes[:, 2], tw, rounding_mode="floor"),
-                     max=tiles_x - 1)
-    y1 = torch.clamp(torch.div(bboxes[:, 3], th, rounding_mode="floor"),
-                     max=row0 + tiles_y - 1)
-    w = torch.where(active, torch.clamp(x1 - x0 + 1, min=0), 0)
-    h = torch.where(active, torch.clamp(y1 - y0 + 1, min=0), 0)
-    return x0, y0, x1, y1, w, h
-
-
-class CandInputs(NamedTuple):
-    """Inputs of kernel A, built from the scene (ops/coarse.py cand_pack)."""
-    cand_pack: torch.Tensor   # (NI, 32) int32 bit patterns
-    counts: torch.Tensor      # (NI,) int32
-    excl: torch.Tensor        # (NI,) int32
-    total: torch.Tensor       # (1,) int32
-
-
-def _scene_on_cuda(scene: DeviceScene) -> bool:
-    return kernels.on_cuda(*(getattr(scene, f) for f, _, _ in SCENE_FIELDS),
-                           scene.n_items)
-
-
-def cand_inputs(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
-                tile_w: int, tile_h: int, row0: int = 0) -> CandInputs:
-    """Per-item candidate rows: colours, bbox, half width, colour bits,
-    flags, clip rect, the packed item ints, the item id and the gradient
-    payload -- every attribute the tail commands need rides one
-    expansion.  On the card one call of kernel A's ``cand_prep``
-    (``candfuse.cand_prep``), else :func:`cand_inputs_plain`."""
-    kw = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w,
-              tile_h=tile_h, row0=row0)
-    if not _scene_on_cuda(scene):
-        return cand_inputs_plain(scene, **kw)
-    return CandInputs(*cand_prep(scene, **kw))
-
-
-def cand_inputs_plain(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
-                      tile_w: int, tile_h: int,
-                      row0: int = 0) -> CandInputs:
-    """Plain PyTorch version of :func:`cand_inputs` (the JAX pass's glue,
-    ``piet_tpu/ops/coarse.py:324-346``)."""
-    NI = scene.tags.shape[0]
-    dev = scene.tags.device
-    item_ids = torch.arange(NI, dtype=I32, device=dev)
-    active = (item_ids < scene.n_items) & (scene.tags > 0)
-    tags = torch.where(active, scene.tags, 0)
-    bx0, by0, bx1, by1, bw, bh = _item_tile_rect(
-        scene.bboxes, tile_w, tile_h, tiles_x, tiles_y, active, row0)
-    counts = bw * bh
-    excl, incl = _exclusive_cumsum(counts)
-    item_pack = torch.stack([tags, scene.n_pts, scene.pt_offset, excl,
-                             bx0, by0, bx1, by1, bw], dim=1)
-    cand_pack = torch.cat(
-        [_bits(scene.colors_lin), _bits(scene.bboxes.to(F32)),
-         _bits(0.5 * scene.widths)[:, None], scene.colors_u32[:, None],
-         _bits(scene.flags.to(F32))[:, None], _bits(scene.clips),
-         item_pack, item_ids[:, None], _bits(scene.grads[:, :7])],
-        dim=1).contiguous()
-    return CandInputs(cand_pack, counts, excl, incl[-1:].clone())
-
-
-def cand_stage(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
-               tile_w: int, tile_h: int, row0: int, cap: int):
-    """Kernel A as the coarse pass runs it: the item rows
-    (:func:`cand_inputs`) and their expansion into ``cap`` candidate
-    records (``candfuse.cand_records_fused`` without ``cand_tx``).  On the
-    card one call (``candfuse.cand_prep_expand``), the expansion a
-    programmatic dependent launch behind the rows.  Returns (CandInputs,
-    ca, cand_tile, cand_ty)."""
-    kw = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w,
-              tile_h=tile_h, row0=row0)
-    if _scene_on_cuda(scene):
-        rows, ca, tile, ty = cand_prep_expand(scene, cap=cap, **kw)
-        return CandInputs(*rows), ca, tile, ty
-    ci = cand_inputs_plain(scene, **kw)
-    ca, tile, ty, _ = cand_records_fused_plain(*ci, row0, cap,
-                                               tiles_x=tiles_x)
-    return ci, ca, tile, ty
 
 
 def derive_seg_stage(scene: DeviceScene, item_pack: torch.Tensor, *,
@@ -513,8 +423,8 @@ def _coarse_pass(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
     # ---- candidate rows and their expansion (kernel A) -----------------
     rect_kw = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w,
                    tile_h=tile_h, row0=row0)
-    ci_in, ca, cand_tile, cand_ty = cand_stage(scene, cap=max_candidates,
-                                               **rect_kw)
+    ci_in, ca, cand_tile, cand_ty = cand_prep_expand(
+        scene, cap=max_candidates, **rect_kw)
     probe("cand_expand", ca, cand_tile, cand_ty)
     n_cand = ci_in.total
     if taps is not None:
@@ -732,16 +642,13 @@ def _coarse_pass(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
                   cmd_capacity=cmd_capacity)
         if taps is not None:
             taps["dense_tail"] = (tail, live, kw)
-        if kernels.on_cuda(*tail):
-            ptcl = dense_tail(*tail, **kw)
-        else:
-            ptcl = _dense_ptcl(*tail, live, **kw)
+        ptcl = dense_tail(*tail, **kw)
         diag["live_cmds"] = ptcl[2].sum()
         out = CoarseOutput(*ptcl, diag=diag)
         probe("tile_reduce", out.tags, out.args, out.counts)
         return out
 
-    e_ncmds, e_is_opaque, e_is_clear = _meta_bits(stream16)
+    e_ncmds, e_is_opaque, e_is_clear = meta_bits(stream16)
     if pair_mode != "off":
         p = pair_entries(stream16, sorted_keys, live, e_tile, e_ncmds,
                          e_is_opaque, e_is_clear, n_tiles, mode=pair_mode,
@@ -823,119 +730,3 @@ def _run_words(stream16: torch.Tensor, live: torch.Tensor,
     run_len = torch.clamp(next_b - eidxf, max=float(RUN_CAP))
     w_run = W(run_pf, run_len, W(run_ln, -run_len, 0.0))
     return torch.cat([stream16[:, :W_RUN], _bits(w_run)[:, None]], dim=1)
-
-
-def _meta_bits(stream16: torch.Tensor):
-    """Each entry's command count, opaque bit and clearing bit, from its
-    meta word (an integer-valued f32)."""
-    e_meta = stream16[:, W_META].view(F32).to(I32)
-    return (e_meta & META_NCMDS_MASK, (e_meta & META_OPAQUE_BIT) != 0,
-            (e_meta & META_CLEAR_BIT) != 0)
-
-
-def _tile_maxima(e_tile, e_is_opaque, e_is_clear, n_tiles: int):
-    """Each tile's first, last, last opaque and last clearing entry, as
-    index maxima of per-entry values in f32, as the JAX pass computes them
-    (entry indices < 2^24 are exact).  An empty tile gives first E + 1 and
-    last -(E + 2); no opaque entry -1, no clearing one -2."""
-    E = e_tile.shape[0]
-    dev = e_tile.device
-    seg_tile = torch.clamp(e_tile, max=n_tiles).long()
-    eidx_f = torch.arange(E, dtype=F32, device=dev)
-    packed = torch.stack(
-        [-eidx_f - 1.0, eidx_f,
-         e_is_opaque.to(F32) * (eidx_f + 1.0) - 1.0,
-         e_is_clear.to(F32) * (eidx_f + 2.0) - 2.0], dim=1)
-    red_f = torch.full((n_tiles + 1, 4), -_INF, dtype=F32, device=dev)
-    red_f.scatter_reduce_(0, seg_tile[:, None].expand(E, 4), packed, "amax",
-                          include_self=False)
-    red = torch.clamp(red_f[:n_tiles], min=float(-(E + 2))).to(I32)
-    return (-red[:, 0] - 1, red[:, 1], torch.clamp(red[:, 2], min=-1),
-            torch.clamp(red[:, 3], min=-2))
-
-
-def _dense_ptcl(rows, sorted_idx, e_tile, c_color_bits, live, *,
-                n_tiles: int, max_hits: int, cmd_capacity: int):
-    """The sorted records -> dense (T, CAP) command lists: a port of the
-    dense tail of ``piet_tpu/ops/coarse.py`` (per-tile f32 index maxima,
-    command positions, the bail, and the two slot scatters).  The plain
-    version of ``ops/dense_tail.py::dense_tail``, which runs it as one
-    kernel on the card; returns its ``(tags, args, counts, solid,
-    overflow)``.
-
-    ``rows`` are the sorted (E, 16) int32 records with dead rows zeroed.
-    A hit record's slot 0 is its FillEdge or Line (operand words 0-6; the
-    rest are zero), slot 1 its Fill (words 0-4); a candidate record's
-    slot 0 is its tail command with all 12 operand words (word 7 rides in
-    the record's slot-1 tag word, the clip rect or second stop in words
-    9-12).  Rows are assembled as int32 bit patterns: tags as f32 bits
-    would be denormals, and operand words carry NaN payloads."""
-    dev = rows.device
-    E = rows.shape[0]
-    cap = cmd_capacity
-    rows_f = rows.view(F32)
-    e_ncmds, e_is_opaque, e_is_clear = _meta_bits(rows)
-    first_raw, last_raw, opq_e, clr_e = _tile_maxima(
-        e_tile, e_is_opaque, e_is_clear, n_tiles)
-    has_entries = last_raw >= 0
-    first_c = torch.clamp(first_raw, 0, E - 1).long()
-    last_c = torch.clamp(last_raw, 0, E - 1).long()
-    cpos_excl, _ = _exclusive_cumsum(e_ncmds)
-    tile_cmd_base = torch.where(has_entries, cpos_excl[first_c], 0)
-    tile_cmd_total = torch.where(
-        has_entries, cpos_excl[last_c] + e_ncmds[last_c] - tile_cmd_base, 0)
-    best_entry = torch.clamp(opq_e, min=0).long()
-    e_tile_c = torch.clamp(e_tile, max=n_tiles - 1).long()
-    e_pos = cpos_excl - tile_cmd_base[e_tile_c]
-
-    # ---- the bail and each tile's kept command range -------------------
-    bail = clr_e < opq_e
-    last_opaque = torch.where(opq_e >= 0, e_pos[best_entry], -1)
-    cidx = torch.clamp(sorted_idx - max_hits, min=0).long()
-    best_color = c_color_bits[cidx[best_entry]]
-    solid = torch.where(bail, torch.where(last_opaque >= 0, best_color, -1),
-                        0)
-    start = torch.where(bail, 0, torch.where(last_opaque >= 0, last_opaque,
-                                             0))
-    count_post = torch.where(bail, 0, tile_cmd_total - start)
-    overflow = torch.clamp(count_post - cap, min=0)
-    counts = torch.clamp(count_post, max=cap)
-
-    # ---- the two slot scatters into (T * CAP + 1, 13) rows -------------
-    src_is_hit = sorted_idx < max_hits
-    tag0 = rows_f[:, W_S0_TAG].to(I32)
-    s0_valid = tag0 != 0
-    s1_valid = src_is_hit & (rows_f[:, W_S1_TAG] == float(CMD_FILL))
-    zeros = torch.zeros((E, 12 - N_S0_ARGS), dtype=I32, device=dev)
-    hit_args = torch.cat([rows[:, W_S0_ARG:W_S0_ARG + N_S0_ARGS], zeros], 1)
-    s0_args = torch.where(src_is_hit[:, None], hit_args,
-                          rows[:, W_S0_ARG:W_S0_ARG + 12])
-    s1_args = torch.cat([rows[:, W_S1_ARG:W_S1_ARG + N_S1_ARGS],
-                         torch.zeros((E, 12 - N_S1_ARGS), dtype=I32,
-                                     device=dev)], 1)
-    rel = e_pos - start[e_tile_c]
-    tile_ok = live & ~bail[e_tile_c]
-    tile_n = counts[e_tile_c]
-    dump = n_tiles * cap
-    out_rows = torch.zeros((dump + 1, 13), dtype=I32, device=dev)
-
-    def scatter_slot(slot_off, valid, tag, args):
-        pos = rel + slot_off
-        ok = valid & tile_ok & (pos >= 0) & (pos < tile_n)
-        # Every dead slot writes the dump row, which is dropped; live
-        # positions are unique, so which duplicate wins there is moot.
-        flat = torch.where(ok, e_tile_c * cap + pos, dump)
-        row = torch.cat([torch.where(ok, tag, 0)[:, None],
-                         torch.where(ok[:, None], args, 0)], 1)
-        out_rows[flat] = row
-
-    # A fill hit without a slot-0 command places its Fill at rel + 0.
-    scatter_slot(0, s0_valid | s1_valid,
-                 torch.where(s0_valid, tag0, CMD_FILL),
-                 torch.where(s0_valid[:, None], s0_args, s1_args))
-    scatter_slot(1, s0_valid & s1_valid, torch.full_like(tag0, CMD_FILL),
-                 s1_args)
-    tags = out_rows[:dump, 0].reshape(n_tiles, cap).contiguous()
-    args = out_rows[:dump, 1:].reshape(n_tiles, cap * 12).contiguous()
-    return (tags, args.view(F32), counts.to(I32), solid.to(I32),
-            overflow.to(I32))

@@ -39,7 +39,7 @@ from .cmd_math import ieee_sqrt, srgb_encode_u32
 F32 = torch.float32
 
 #: The launch counters of the five kernels and of probe_numerics' division
-#: (``kernels.LAUNCHES``); no frame runs them.
+#: (``tracing.LAUNCHES``); no frame runs them.
 KERNELS = ("probe_div", "probe_numerics", "probe_halfmix", "probe_delivery",
            "probe_mosaic", "probe_dma16")
 

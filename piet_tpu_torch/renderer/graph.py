@@ -19,7 +19,7 @@ Before capture the step runs once eagerly on a side stream, as the
 ``torch.cuda.graphs`` documentation prescribes: that builds the kernel
 library, runs the kernels' one-time attribute calls and fills the
 allocator.  That run and the capture are set-up, not frames: their kernel
-launches are kept out of ``kernels.LAUNCHES``, and each replay adds the
+launches are kept out of ``tracing.LAUNCHES``, and each replay adds the
 launches the capture recorded.  The capture runs with Python's cyclic
 garbage collector paused (:func:`collector_paused`).  A capture that
 fails raises; nothing falls back to running the step eagerly on the card.
@@ -161,7 +161,7 @@ class CapturedStep:
                 with tracing.span("piet.replay"):
                     e.graph.replay()
                     out = e.out.clone()
-            kernels.add_launches(e.launches)
+            tracing.add_launches(e.launches)
             return out
 
     def _capture(self, e: _Entry) -> None:
@@ -171,7 +171,7 @@ class CapturedStep:
         kernels.library()
         t0 = time.perf_counter()
         with tracing.span("piet.capture"):
-            with kernels.launches_apart():
+            with tracing.launches_apart():
                 side = torch.cuda.Stream(dev)
                 side.wait_stream(torch.cuda.current_stream(dev))
                 with torch.cuda.stream(side):
@@ -182,7 +182,7 @@ class CapturedStep:
             # default one is made once, on the card current at the first
             # capture.
             stream = torch.cuda.Stream(dev)
-            with kernels.launches_apart() as launches, collector_paused():
+            with tracing.launches_apart() as launches, collector_paused():
                 with torch.cuda.graph(graph, stream=stream):
                     with tracing.recording_stages(
                             stream.cuda_stream) as stages:
@@ -197,9 +197,9 @@ def device_ops(fn: Callable[[], object], device="cuda") -> List[str]:
     stream, ``fn`` is captured, and the kernel, memset and memcpy nodes
     of the captured graph are listed in the order ``cuGraphGetNodes``
     gives them.  Exact, where a profiler trace can drop
-    records; the launches are kept out of ``kernels.LAUNCHES``."""
+    records; the launches are kept out of ``tracing.LAUNCHES``."""
     dev = torch.device(device)
-    with kernels.launches_apart(), torch.cuda.device(dev):
+    with tracing.launches_apart(), torch.cuda.device(dev):
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):

@@ -102,7 +102,7 @@ def to_device(tree, device):
 
 def _candfuse(args, plain):
     (scene, rect_kw), (ci, akw) = args
-    rows = (coarse.cand_inputs_plain if plain else coarse.cand_inputs)(
+    rows = (candfuse.cand_inputs_plain if plain else candfuse.cand_prep)(
         scene, **rect_kw)
     fused = (candfuse.cand_records_fused_plain if plain
              else candfuse.cand_records_fused)(*ci, **akw)

@@ -1,7 +1,7 @@
 """Kernel A (candfuse) and the row gathers (gatherm) as the redesigned
 kernels run them.
 
-- The item rows: ``coarse.cand_inputs_plain`` (what a CPU tensor runs)
+- The item rows: ``candfuse.cand_inputs_plain`` (what a CPU tensor runs)
   against the JAX pass's glue (``piet_tpu/ops/coarse.py:297-346``, its
   own ``_item_tile_rect`` and cumsum) on adversarial items -- offscreen
   and negative bboxes, slabs with row0 > 0, tags 0 and items past
@@ -44,7 +44,7 @@ from piet_tpu.ops.candfuse import cand_records_fused as jax_cand  # noqa: E402
 from piet_tpu.ops.gatherm import gather_monotone as jax_gather  # noqa: E402
 from piet_tpu.ops.gatherm import (  # noqa: E402
     gather_monotone_xla as jax_gather_xla)
-from piet_tpu_torch import kernels  # noqa: E402
+from piet_tpu_torch import kernels, tracing  # noqa: E402
 from piet_tpu_torch.config import RenderConfig  # noqa: E402
 from piet_tpu_torch.ops import candfuse, coarse, gatherm  # noqa: E402
 from piet_tpu_torch.renderer.capacity import fit_capacities  # noqa: E402
@@ -117,9 +117,9 @@ def test_cand_inputs_plain_matches_jax(case):
     assert tiny.sum() > 2
     leaves.widths = np.where(tiny, np.float32(0.0), leaves.widths)
     dev = device_scene_from_numpy(leaves, "cpu")
-    kernels.reset_launches()
-    got = coarse.cand_inputs(dev, **kw)
-    assert kernels.LAUNCHES["candfuse"] == 0            # the plain version
+    tracing.reset_launches()
+    got = candfuse.cand_prep(dev, **kw)
+    assert tracing.LAUNCHES["candfuse"] == 0            # the plain version
     want = _jax_cand_inputs(leaves, kw)
     np.testing.assert_array_equal(_u32(got.cand_pack.numpy()),
                                   _u32(want[0]))
@@ -208,8 +208,8 @@ def _emulate_prep(leaves, kw):
 def test_cand_prep_schedule_equals_plain(case):
     leaves, kw = cand_scene_case(case)
     pack, counts, excl, total = _emulate_prep(leaves, kw)
-    want = coarse.cand_inputs_plain(device_scene_from_numpy(leaves, "cpu"),
-                                    **kw)
+    want = candfuse.cand_inputs_plain(
+        device_scene_from_numpy(leaves, "cpu"), **kw)
     np.testing.assert_array_equal(pack, _u32(want.cand_pack.numpy()))
     np.testing.assert_array_equal(counts, want.counts.numpy())
     np.testing.assert_array_equal(excl, want.excl.numpy())
@@ -539,10 +539,10 @@ def test_coarse_taps_one_call_to_each(seg_pre):
                                                    "backdrop"])
     scene_in, rect_kw = taps["cand_inputs"]
     ci, akw = taps["candfuse"]
-    again = coarse.cand_inputs(scene_in, **rect_kw)
+    again = candfuse.cand_prep(scene_in, **rect_kw)
     for g, w in zip(again, ci):
         assert torch.equal(g, w)
-    stage = coarse.cand_stage(scene_in, cap=akw["cap"], **rect_kw)
+    stage = candfuse.cand_prep_expand(scene_in, cap=akw["cap"], **rect_kw)
     plain = candfuse.cand_records_fused(*ci, **akw)
     for g, w in zip(stage[1:], plain[:3]):
         assert torch.equal(g.view(torch.int32), w.view(torch.int32))

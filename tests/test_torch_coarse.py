@@ -31,8 +31,9 @@ from piet_tpu.renderer.renderer import prepare_scene  # noqa: E402
 from piet_tpu.renderer.segstage import build_seg_pre  # noqa: E402
 from piet_tpu.scene import fixtures  # noqa: E402
 from piet_tpu.scene.svg import make_tiger  # noqa: E402
-from piet_tpu_torch.ops.coarse import (cand_inputs,  # noqa: E402
-                                       coarse_rasterize, derive_seg_stage,
+from piet_tpu_torch.ops.candfuse import cand_prep  # noqa: E402
+from piet_tpu_torch.ops.coarse import (coarse_rasterize,  # noqa: E402
+                                       derive_seg_stage,
                                        stream_from_jax_layout,
                                        stream_to_jax_layout)
 from piet_tpu_torch.renderer.renderer import (  # noqa: E402
@@ -150,8 +151,8 @@ def test_derived_segment_rows_equal_host_stage(name, make, wh, th):
         width=wh[0], height=wh[1], tile_height=th, tile_width=128))
     dev = device_scene_from_numpy(
         jax.tree.map(np.asarray, prepare_scene(scene, cfg)), "cpu")
-    ci = cand_inputs(dev, tiles_x=cfg.tiles_x, tiles_y=cfg.tiles_y,
-                     tile_w=cfg.tile_width, tile_h=cfg.tile_height)
+    ci = cand_prep(dev, tiles_x=cfg.tiles_x, tiles_y=cfg.tiles_y,
+                   tile_w=cfg.tile_width, tile_h=cfg.tile_height)
     sp = derive_seg_stage(dev, ci.cand_pack[:, 15:24],
                           tile_w=cfg.tile_width, tile_h=cfg.tile_height,
                           max_segments=cfg.max_segments)

@@ -1,6 +1,6 @@
 """The coarse pass's dense tail: ``ops/dense_tail.py::dense_tail`` (the
 kernel ``csrc/dense_tail.cu``) against its plain version
-``ops/coarse.py::_dense_ptcl``.
+``ops/dense_tail.py::dense_tail_plain``.
 
 On the CPU, the facts the kernel rests on, on the configurations of
 tests/test_coarse.py (:data:`COARSE_CASES`), the overflow case of
@@ -38,12 +38,12 @@ import torch
 # each, or torch's pools oversubscribe them and stall every worker.
 torch.set_num_threads(1)
 
-from piet_tpu_torch import kernels  # noqa: E402
+from piet_tpu_torch import tracing  # noqa: E402
 from piet_tpu_torch.config import RenderConfig  # noqa: E402
 from piet_tpu_torch.layout.entry_stream import (  # noqa: E402
     META_CLEAR_BIT, META_NCMDS_MASK, META_OPAQUE_BIT, N_S0_ARGS, N_S1_ARGS,
     W_META, W_S0_ARG, W_S0_TAG, W_S1_ARG, W_S1_TAG)
-from piet_tpu_torch.ops import coarse  # noqa: E402
+from piet_tpu_torch.ops import coarse, dense_tail  # noqa: E402
 from piet_tpu_torch.raster.ptcl import ARG_WORDS, CMD_FILL  # noqa: E402
 from piet_tpu_torch.renderer.capacity import fit_capacities  # noqa: E402
 from piet_tpu_torch.renderer.renderer import (  # noqa: E402
@@ -294,9 +294,10 @@ def test_tile_runs_give_the_f32_maxima(name):
     _, (rows, _, e_tile, _), _, kw, _ = cpu_case(name)
     n_tiles = kw["n_tiles"]
     _, opaque, clear = _meta(rows)
-    first_raw, last_raw, opq_e, clr_e = (t.numpy() for t in coarse._tile_maxima(
-        torch.from_numpy(e_tile), torch.from_numpy(opaque),
-        torch.from_numpy(clear), n_tiles))
+    first_raw, last_raw, opq_e, clr_e = (
+        t.numpy() for t in dense_tail._tile_maxima(
+            torch.from_numpy(e_tile), torch.from_numpy(opaque),
+            torch.from_numpy(clear), n_tiles))
     first, end = tile_runs(e_tile, n_tiles)
     has = end > first
     assert has.any() and (name != "corner" or (~has).sum() > n_tiles // 2)
@@ -344,10 +345,10 @@ def test_kept_slots_are_exactly_zero_to_counts(name):
 
 def test_the_cpu_pass_launches_no_dense_tail():
     scene, cfg = CPU_CASES["corner"]()
-    kernels.reset_launches()
+    tracing.reset_launches()
     out, _, _, _, _ = dense_pass(scene, cfg, "cpu")
     assert int(out.counts.sum()) > 0
-    assert kernels.LAUNCHES["dense_tail"] == 0
+    assert tracing.LAUNCHES["dense_tail"] == 0
 
 
 # ---- on the card ----------------------------------------------------------
@@ -394,11 +395,12 @@ def test_cuda_dense_tail_equals_plain(name):
     sorted records (copied to the CPU), with one launch a pass."""
     _need_card()
     scene, cfg, seg_pre = CUDA_CASES[name]()
-    kernels.reset_launches()
+    tracing.reset_launches()
     out, tail, live, kw, _ = dense_pass(scene, cfg, "cuda", seg_pre)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["dense_tail"] == 1
-    want = coarse._dense_ptcl(*(t.cpu() for t in tail), live.cpu(), **kw)
+    assert tracing.LAUNCHES["dense_tail"] == 1
+    want = dense_tail.dense_tail_plain(*(t.cpu() for t in tail), live.cpu(),
+                                       **kw)
     got = (out.tags, out.args, out.counts, out.solid, out.overflow)
     assert_ptcl_equal([t.cpu() for t in got], want, name)
     assert int(out.diag["live_cmds"]) == int(want[2].sum()) > 0
@@ -410,14 +412,14 @@ def test_cuda_dense_tail_launches_once_a_dense_pass_only():
     scene, cfg = CPU_CASES["tiger_1x"]()
     dev = prepare_scene(scene, cfg, "cuda")
     kw = _pass_kw(cfg)
-    kernels.reset_launches()
+    tracing.reset_launches()
     for _ in range(3):
         coarse.coarse_rasterize(dev, output="dense", **kw)
-    assert kernels.LAUNCHES["dense_tail"] == 3
-    kernels.reset_launches()
+    assert tracing.LAUNCHES["dense_tail"] == 3
+    tracing.reset_launches()
     coarse.coarse_rasterize(dev, output="entries", **kw)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["dense_tail"] == 0
+    assert tracing.LAUNCHES["dense_tail"] == 0
 
 
 def _frame_steps():

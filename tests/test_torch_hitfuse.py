@@ -27,8 +27,8 @@ from piet_tpu.ops.hitfuse import hit_records_fused as jax_hit  # noqa: E402
 from piet_tpu.renderer.capacity import fit_capacities  # noqa: E402
 from piet_tpu.renderer.renderer import prepare_scene  # noqa: E402
 from piet_tpu.scene.svg import make_tiger  # noqa: E402
-from piet_tpu_torch.ops.candfuse import cand_records_fused  # noqa: E402
-from piet_tpu_torch.ops.coarse import cand_inputs  # noqa: E402
+from piet_tpu_torch.ops.candfuse import (cand_prep,  # noqa: E402
+                                         cand_records_fused)
 from piet_tpu_torch.ops.hitfuse import (K_KEY, K_NCMDS,  # noqa: E402
                                         K_TILE, OUT_WORDS,
                                         hit_records_fused, split_fused)
@@ -53,8 +53,8 @@ def _bits(x):
 
 def test_cand_records_match_jax_interpret(staged):
     cfg, _, dev = staged
-    ci = cand_inputs(dev, tiles_x=cfg.tiles_x, tiles_y=cfg.tiles_y,
-                     tile_w=cfg.tile_width, tile_h=cfg.tile_height)
+    ci = cand_prep(dev, tiles_x=cfg.tiles_x, tiles_y=cfg.tiles_y,
+                   tile_w=cfg.tile_width, tile_h=cfg.tile_height)
     total = int(ci.total[0])
     assert 0 < total <= cfg.max_candidates
     got = cand_records_fused(*ci, 0, cfg.max_candidates, tiles_x=cfg.tiles_x)

@@ -86,7 +86,7 @@ def test_port_sources_never_import_jax():
     assert {ROOT / "piet_tpu_torch" / "bench.py",
             ROOT / "piet_tpu_torch" / "tools" / "time_config.py"} <= set(
                 sources)
-    for path in sources + [ROOT / "chip_smoke.py", ROOT / "ab_kernels.py"]:
+    for path in sources + [ROOT / "chip_smoke.py"]:
         for line in path.read_text().splitlines():
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:

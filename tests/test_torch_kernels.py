@@ -19,7 +19,7 @@ import torch
 # each, or torch's pools oversubscribe them and stall every worker.
 torch.set_num_threads(1)
 
-from piet_tpu_torch import kernels
+from piet_tpu_torch import kernels, tracing
 from piet_tpu_torch.config import RenderConfig
 from piet_tpu_torch.ops import (candfuse, coarse, expand, fine, fine_xla,
                                 gatherm, hitfuse, keyed, probes, sort)
@@ -93,27 +93,27 @@ def test_library_name_tracks_sources_and_flags(monkeypatch):
 
 
 def test_plain_calls_do_not_count_launches():
-    kernels.reset_launches()
+    tracing.reset_launches()
     scene = fixtures.get_scene("path_test")
     Renderer.for_scene(scene, 256, 256, device="cpu").render(scene)
-    assert all(v == 0 for v in kernels.LAUNCHES.values())
+    assert all(v == 0 for v in tracing.LAUNCHES.values())
 
 
 def test_launches_apart_keeps_counts_out():
     """Launches counted inside launches_apart go to its dict, not to
     LAUNCHES; add_launches adds such a dict back (a graph replay)."""
-    kernels.reset_launches()
-    kernels.LAUNCHES["sort"] = 2
-    with kernels.launches_apart() as apart:
-        kernels.LAUNCHES["sort"] += 1
-        kernels.LAUNCHES["fine"] += 3
-    assert kernels.LAUNCHES["sort"] == 2 and kernels.LAUNCHES["fine"] == 0
+    tracing.reset_launches()
+    tracing.LAUNCHES["sort"] = 2
+    with tracing.launches_apart() as apart:
+        tracing.LAUNCHES["sort"] += 1
+        tracing.LAUNCHES["fine"] += 3
+    assert tracing.LAUNCHES["sort"] == 2 and tracing.LAUNCHES["fine"] == 0
     assert apart["sort"] == 1 and apart["fine"] == 3
-    assert set(apart) == set(kernels.LAUNCHES)
-    kernels.add_launches(apart)
-    kernels.add_launches(apart)
-    assert kernels.LAUNCHES["sort"] == 4 and kernels.LAUNCHES["fine"] == 6
-    kernels.reset_launches()
+    assert set(apart) == set(tracing.LAUNCHES)
+    tracing.add_launches(apart)
+    tracing.add_launches(apart)
+    assert tracing.LAUNCHES["sort"] == 4 and tracing.LAUNCHES["fine"] == 6
+    tracing.reset_launches()
 
 
 def _c_entry_points(text: str) -> dict:
@@ -145,7 +145,7 @@ def test_every_kernel_has_an_entry_point_and_a_counter():
     names = {p.stem for p in kernels.CSRC.glob("*.cu")} - {"probes",
                                                             "mosaic_probe"}
     assert (names | {"fine_paired", "expand_pairing"} | set(probes.KERNELS)
-            == set(kernels.LAUNCHES))
+            == set(tracing.LAUNCHES))
     found = {}
     for src in kernels.CSRC.glob("*.cu"):
         entries = _c_entry_points(src.read_text())
@@ -241,9 +241,9 @@ def test_cuda_hitfuse_edge_cases(case, cuda_inputs):
     else:
         (rows, counts, excl, total), kw = _affine_tiger_hit_taps()
     assert int(total.reshape(-1)[0]) <= kw["cap"]
-    kernels.reset_launches()
+    tracing.reset_launches()
     got = hitfuse.hit_records_fused(rows, counts, excl, total, **kw)
-    assert kernels.LAUNCHES["hitfuse"] == 1
+    assert tracing.LAUNCHES["hitfuse"] == 1
     assert _same_bits(got, hitfuse.hit_records_fused_plain(
         rows, counts, excl, total, **kw))
 
@@ -282,9 +282,9 @@ def test_cuda_sort_equals_plain(n, n_keys, bound):
     keys, val = _sort_case(n, n_keys, bound, n + n_keys, "reversed"
                            if n_keys == 1 else "random")
     bounds = (bound,) * n_keys
-    kernels.reset_launches()
+    tracing.reset_launches()
     gk, gv = sort.stable_sort_multi(keys, val, bounds)
-    assert kernels.LAUNCHES["sort"] == 1
+    assert tracing.LAUNCHES["sort"] == 1
     wk, wv = sort.stable_sort_multi_plain(keys, val)
     assert all(_same_bits(g, w) for g, w in zip(gk, wk))
     assert torch.equal(gv, wv)
@@ -351,9 +351,9 @@ def test_cuda_beziers_render_equals_oracle(fine_impl):
     bound = cfg.n_tiles * 2 * (cfg.max_items + 1)
     assert n > sort.CLUSTER * sort.CLUSTER_CHUNK
     assert sort.sort_plan(n, (bound,)).cluster == 0
-    kernels.reset_launches()
+    tracing.reset_launches()
     got = r.render(scene)
-    assert kernels.LAUNCHES["sort"] == 1
+    assert tracing.LAUNCHES["sort"] == 1
     np.testing.assert_array_equal(got, cpu_render_scene(scene, cfg))
 
 
@@ -369,9 +369,9 @@ def test_cuda_unpacked_render_equals_oracle(fine_impl):
         width=1024, height=1024, tile_height=16, tile_width=16)),
         max_items=2048)
     assert cfg.tiles_x * cfg.tiles_y * 2 * (cfg.max_items + 1) >= 2 ** 24
-    kernels.reset_launches()
+    tracing.reset_launches()
     got = Renderer(cfg, device="cuda", fine_impl=fine_impl).render(scene)
-    assert kernels.LAUNCHES["sort"] == 1
+    assert tracing.LAUNCHES["sort"] == 1
     np.testing.assert_array_equal(got, cpu_render_scene(scene, cfg))
 
 
@@ -465,9 +465,9 @@ def test_cuda_keyed_equals_plain(case, cuda_inputs):
     synthetic records: keys out of range, -0.0 values, live counts 0, 1,
     cap and past cap) in one launch, and one stream through keyed_sum."""
     rec, n_live, n_out = _keyed_record_case(case, cuda_inputs)
-    kernels.reset_launches()
+    tracing.reset_launches()
     got = keyed.record_keyed_sums(rec, n_live, n_out)
-    assert kernels.LAUNCHES["keyed"] == 1
+    assert tracing.LAUNCHES["keyed"] == 1
     want = keyed.record_keyed_sums_plain(rec, n_live, n_out)
     assert got[0].dtype == torch.int32 and got[1].dtype == torch.float32
     assert all(_same_bits(g, w) for g, w in zip(got, want))
@@ -490,9 +490,9 @@ def test_cuda_expand_equals_plain(case, words):
     rows, counts = torch.from_numpy(rows).cuda(), torch.from_numpy(
         counts).cuda()
     for excl in (None, torch.cumsum(counts, 0, dtype=torch.int32) - counts):
-        kernels.reset_launches()
+        tracing.reset_launches()
         got = expand.expand_rows(rows, counts, cap, excl)
-        assert kernels.LAUNCHES["expand"] == 1
+        assert tracing.LAUNCHES["expand"] == 1
         assert _same_bits(got, expand.expand_rows_plain(rows, counts, cap,
                                                         excl))
 
@@ -535,10 +535,10 @@ def test_cuda_one_keyed_launch_per_coarse_pass(output, cuda_inputs):
     scene = make_tiger(scale=1.0)
     for seg_pre in (True, False):
         dev = prepare_scene(scene, cfg, "cuda", seg_pre=seg_pre)
-        kernels.reset_launches()
+        tracing.reset_launches()
         coarse.coarse_rasterize(dev, **kw)
-        assert kernels.LAUNCHES["keyed"] == 1, (seg_pre, kernels.LAUNCHES)
-        assert kernels.LAUNCHES["expand"] == (0 if seg_pre else 1)
+        assert tracing.LAUNCHES["keyed"] == 1, (seg_pre, tracing.LAUNCHES)
+        assert tracing.LAUNCHES["expand"] == (0 if seg_pre else 1)
 
 
 @pytest.mark.cuda
@@ -566,15 +566,15 @@ def test_cuda_animated_frame_equals_oracle(t):
                          bucket=True)
     render_t, _ = animate.make_animated_render_fn(cfg, size=256, n=24,
                                                   seed=5, fine_impl="entries")
-    kernels.reset_launches()
+    tracing.reset_launches()
     img, _ = render_t(t)
-    launches = dict(kernels.LAUNCHES)
+    launches = dict(tracing.LAUNCHES)
     assert launches.pop("fine_dense") == 0     # the entries route
     assert launches.pop("dense_tail") == 0
     assert launches.pop("fine_paired") == 0    # an unpaired stream
     assert launches.pop("expand_pairing") == 0
     assert all(v > 0 for k, v in launches.items()
-               if k not in probes.KERNELS), kernels.LAUNCHES
+               if k not in probes.KERNELS), tracing.LAUNCHES
     got = img.cpu().numpy().view(np.uint8).reshape(256, 256, 4)
     frame = fetch_scene(render_t.scene_at(t), tmpl.n_items, tmpl.n_points)
     np.testing.assert_array_equal(got, cpu_render_scene(frame, cfg))
@@ -650,19 +650,19 @@ def test_cuda_render_bitwise_equals_oracle(name, make, size, th):
     r = Renderer.for_scene(scene, size, size, device="cuda",
                            tile_height=th, tile_width=128,
                            fine_impl="entries")
-    kernels.reset_launches()
+    tracing.reset_launches()
     got = r.render(scene)
     # render() stages the scene for one frame, which derives its segments
     # on the card (one expansion); the entries route runs no dense
     # interpreter.
-    launches = dict(kernels.LAUNCHES)
+    launches = dict(tracing.LAUNCHES)
     assert launches.pop("expand") == 1
     assert launches.pop("fine_dense") == 0
     assert launches.pop("dense_tail") == 0
     assert launches.pop("fine_paired") == 0
     assert launches.pop("expand_pairing") == 0
     assert all(v > 0 for k, v in launches.items()
-               if k not in probes.KERNELS), kernels.LAUNCHES
+               if k not in probes.KERNELS), tracing.LAUNCHES
     np.testing.assert_array_equal(got, cpu_render_scene(scene, r.config),
                                   err_msg=name)
 
@@ -700,12 +700,12 @@ def test_cuda_fine_dense_equals_plain(name, make, size, th):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     _, _, args, kw = _dense_ptcl(make, size, th, "cuda")
-    kernels.reset_launches()
+    tracing.reset_launches()
     assert torch.equal(fine.fine_rasterize(*args, **kw),
                        fine.fine_rasterize_plain(*args, **kw))
     assert torch.equal(fine_xla.fine_rasterize_xla(*args, **kw),
                        fine_xla.fine_rasterize_xla_plain(*args, **kw))
-    assert kernels.LAUNCHES["fine_dense"] == 2
+    assert tracing.LAUNCHES["fine_dense"] == 2
 
 
 @pytest.mark.cuda
@@ -735,10 +735,10 @@ def test_cuda_dense_render_equals_oracle(name, make, size, th):
     scene = make()
     r = Renderer.for_scene(scene, size, size, device="cuda",
                            fine_impl="dense", tile_height=th, tile_width=128)
-    kernels.reset_launches()
+    tracing.reset_launches()
     got = r.render(scene)
-    assert kernels.LAUNCHES["fine_dense"] == 1
-    assert kernels.LAUNCHES["fine"] == 0
+    assert tracing.LAUNCHES["fine_dense"] == 1
+    assert tracing.LAUNCHES["fine"] == 0
     assert r.last_stats["overflow_cmds"] == 0
     np.testing.assert_array_equal(got, cpu_render_scene(scene, r.config),
                                   err_msg=name)
@@ -782,12 +782,12 @@ def test_cuda_fine_dense_synthetic_equals_plain(tile_w, groups):
     args = tuple(torch.from_numpy(a).cuda() for a in synth_dense_ptcl(
         tile_w, tile_w=tile_w, tile_h=16, cap=cap, groups=groups))
     kw = dict(tile_h=16, tile_w=tile_w, cmd_capacity=cap)
-    kernels.reset_launches()
+    tracing.reset_launches()
     assert torch.equal(fine.fine_rasterize(*args, **kw),
                        fine.fine_rasterize_plain(*args, **kw))
     assert torch.equal(fine_xla.fine_rasterize_xla(*args, **kw),
                        fine_xla.fine_rasterize_xla_plain(*args, **kw))
-    assert kernels.LAUNCHES["fine_dense"] == 2
+    assert tracing.LAUNCHES["fine_dense"] == 2
 
 
 # ---- kernel A and the row gathers on the card ------------------------------
@@ -827,15 +827,15 @@ def test_cuda_cand_inputs_equal_plain(case, cuda_inputs):
     14,336 item slots (28 prep blocks) -- and the coarse pass's call (rows and
     expansion, one count) against the plain versions."""
     scene, kw, cap = _cand_scene(case, cuda_inputs)
-    kernels.reset_launches()
-    got = coarse.cand_inputs(scene, **kw)
-    assert kernels.LAUNCHES["candfuse"] == 1
-    want = coarse.cand_inputs_plain(scene, **kw)
+    tracing.reset_launches()
+    got = candfuse.cand_prep(scene, **kw)
+    assert tracing.LAUNCHES["candfuse"] == 1
+    want = candfuse.cand_inputs_plain(scene, **kw)
     assert all(_same_bits(g, w) for g, w in zip(got, want))
     assert got.total.shape == (1,) and int(got.total[0]) > 0
-    kernels.reset_launches()
-    stage = coarse.cand_stage(scene, cap=cap, **kw)
-    assert kernels.LAUNCHES["candfuse"] == 1
+    tracing.reset_launches()
+    stage = candfuse.cand_prep_expand(scene, cap=cap, **kw)
+    assert tracing.LAUNCHES["candfuse"] == 1
     plain = candfuse.cand_records_fused_plain(
         *want, kw["row0"], cap, tiles_x=kw["tiles_x"])
     assert all(_same_bits(g, w) for g, w in zip(stage[0], want))
@@ -855,9 +855,9 @@ def test_cuda_cand_expand_equals_plain(case):
     args = [torch.from_numpy(a).cuda() for a in (pack, counts, excl)]
     args.append(torch.tensor([int(counts.sum())], dtype=torch.int32,
                              device="cuda"))
-    kernels.reset_launches()
+    tracing.reset_launches()
     got = candfuse.cand_records_fused(*args, 3, cap, tiles_x=6)
-    assert kernels.LAUNCHES["candfuse"] == 1
+    assert tracing.LAUNCHES["candfuse"] == 1
     want = candfuse.cand_records_fused_plain(*args, 3, cap, tiles_x=6)
     assert len(got) == len(want) == 4
     assert all(_same_bits(g, w) for g, w in zip(got, want))
@@ -890,9 +890,9 @@ def test_cuda_gather_endpoints_equal_plain(case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     args = _endpoint_args(case)
-    kernels.reset_launches()
+    tracing.reset_launches()
     got = gatherm.gather_endpoints(*args)
-    assert kernels.LAUNCHES["gatherm"] == 1
+    assert tracing.LAUNCHES["gatherm"] == 1
     want = gatherm.gather_endpoints_plain(*args)
     assert all(_same_bits(g, w) for g, w in zip(got, want))
 
@@ -920,9 +920,9 @@ def test_cuda_backdrop_equals_plain(case, cuda_inputs):
         csum[::17] = -0.0
         csum[3::29] = np.float32(1e-45)
         args = (torch.from_numpy(csum).cuda(), ca, ty)
-    kernels.reset_launches()
+    tracing.reset_launches()
     got = gatherm.backdrop_from_csum(*args)
-    assert kernels.LAUNCHES["gatherm"] == 1
+    assert tracing.LAUNCHES["gatherm"] == 1
     assert _same_bits(got, gatherm.backdrop_from_csum_plain(*args))
 
 
@@ -964,13 +964,14 @@ def test_cuda_candfuse_and_gatherm_device_ops(cuda_inputs):
     (_, eargs), _ = _anim_taps("cuda")["gatherm"]
     rows, idxs = gatherm.endpoint_streams(*eargs)
     for name, fn, per_call in (
-            ("cand_inputs", lambda: coarse.cand_inputs(scene, **kw), 1),
-            ("cand_stage", lambda: coarse.cand_stage(scene, cap=cap, **kw),
-             2),
-            ("cand_inputs, beziers_10k",
-             lambda: coarse.cand_inputs(bez, **bez_kw), 2),
-            ("cand_stage, beziers_10k",
-             lambda: coarse.cand_stage(bez, cap=bez_cap, **bez_kw), 3),
+            ("cand_prep", lambda: candfuse.cand_prep(scene, **kw), 1),
+            ("cand_prep_expand",
+             lambda: candfuse.cand_prep_expand(scene, cap=cap, **kw), 2),
+            ("cand_prep, beziers_10k",
+             lambda: candfuse.cand_prep(bez, **bez_kw), 2),
+            ("cand_prep_expand, beziers_10k",
+             lambda: candfuse.cand_prep_expand(bez, cap=bez_cap, **bez_kw),
+             3),
             ("backdrop", lambda: gatherm.backdrop_from_csum(*bargs), 1),
             ("endpoints", lambda: gatherm.gather_endpoints(*eargs), 1),
             ("gather_monotone",
@@ -1064,16 +1065,16 @@ def test_cuda_launches_count_replays(fine_impl):
                          bucket=True)
     render = make_render_fn(cfg, fine_impl=fine_impl)
     dev = prepare_scene(scene, cfg, "cuda")
-    kernels.reset_launches()
+    tracing.reset_launches()
     render(dev)
     (entry,) = render.step._entries.values()
     captured = entry.launches
     route = "fine" if fine_impl == "entries" else "fine_dense"
     assert captured[route] == captured["keyed"] == captured["sort"] == 1
-    assert dict(kernels.LAUNCHES) == captured
+    assert dict(tracing.LAUNCHES) == captured
     for _ in range(4):
         render(dev)
-    assert kernels.LAUNCHES == {k: 5 * n for k, n in captured.items()}
+    assert tracing.LAUNCHES == {k: 5 * n for k, n in captured.items()}
 
 
 PAIR_SCENES = [
@@ -1105,9 +1106,9 @@ def test_cuda_paired_fine_equals_plain(name, make, size, th, tw, mode,
                 st.first, st.n_entries, np.zeros_like(st.first), st.stream))
             skw = dict(tile_h=syn.tile_h, tile_w=syn.tile_w,
                        tiles_x=syn.tiles_x, paired=smode != "off")
-            kernels.reset_launches()
+            tracing.reset_launches()
             sgot = fine.fine_rasterize_entries(*sargs, **skw)
-            assert kernels.LAUNCHES["fine_paired" if smode != "off"
+            assert tracing.LAUNCHES["fine_paired" if smode != "off"
                                     else "fine"] == 1
             assert torch.equal(sgot, fine.fine_rasterize_entries_plain(
                 *sargs, **skw)), (seed, stw, smode)
@@ -1129,10 +1130,10 @@ def test_cuda_paired_fine_equals_plain(name, make, size, th, tw, mode,
             ce.stream, 0)
     kw = dict(tile_h=cfg.tile_height, tile_w=cfg.tile_width,
               tiles_x=cfg.tiles_x, paired=True)
-    kernels.reset_launches()
+    tracing.reset_launches()
     got = fine.fine_rasterize_entries(*args, **kw)
-    assert kernels.LAUNCHES["fine_paired"] == 1
-    assert kernels.LAUNCHES["fine"] == 0
+    assert tracing.LAUNCHES["fine_paired"] == 1
+    assert tracing.LAUNCHES["fine"] == 0
     assert torch.equal(got, fine.fine_rasterize_entries_plain(*args, **kw))
     if mode == "compact":
         bundle, keep = taps["pairing"]
@@ -1141,13 +1142,13 @@ def test_cuda_paired_fine_equals_plain(name, make, size, th, tw, mode,
         assert torch.equal(got, want) and torch.equal(total, want_total)
     monkeypatch.setenv("PIET_PAIR", mode)
     r = Renderer(cfg, "cuda", fine_impl="entries")
-    kernels.reset_launches()
+    tracing.reset_launches()
     np.testing.assert_array_equal(r.render(scene),
                                   cpu_render_scene(scene, cfg))
-    assert kernels.LAUNCHES["expand_pairing"] == (mode == "compact")
-    assert kernels.LAUNCHES["expand"] == 1
-    assert kernels.LAUNCHES["fine_paired"] == 1
-    assert kernels.LAUNCHES["fine"] == 0
+    assert tracing.LAUNCHES["expand_pairing"] == (mode == "compact")
+    assert tracing.LAUNCHES["expand"] == 1
+    assert tracing.LAUNCHES["fine_paired"] == 1
+    assert tracing.LAUNCHES["fine"] == 0
 
 
 #: The compaction's cases on the card: which rows are kept and E (blocks
@@ -1174,10 +1175,10 @@ def test_cuda_compaction_equals_plain(case, E):
     keep = {"all kept": idx >= 0, "none kept": idx < 0,
             "last kept": idx == E - 1, "first kept": idx == 0}.get(
         case, torch.rand(E, generator=g, device="cuda") < 0.35)
-    kernels.reset_launches()
+    tracing.reset_launches()
     got, total = pairing.compact_rows(bundle, keep)
-    assert kernels.LAUNCHES["expand_pairing"] == 1
-    assert kernels.LAUNCHES["expand"] == 0
+    assert tracing.LAUNCHES["expand_pairing"] == 1
+    assert tracing.LAUNCHES["expand"] == 0
     want, want_total = pairing.compact_rows_plain(bundle, keep)
     assert torch.equal(got, want) and torch.equal(total, want_total)
     assert total.shape == () and int(total) == int(keep.sum())
@@ -1205,9 +1206,9 @@ def test_cuda_sharded_frame_equals_one_slab(n, interleave, fine_impl):
     one = Renderer(cfg, "cuda", fine_impl=fine_impl).render(scene)
     sr = ShardedRenderer(cfg, ["cuda:0"] * n, fine_impl=fine_impl,
                          interleave=interleave)
-    kernels.reset_launches()
+    tracing.reset_launches()
     got = sr.render(scene)
-    assert kernels.LAUNCHES["expand"] == n * interleave
+    assert tracing.LAUNCHES["expand"] == n * interleave
     np.testing.assert_array_equal(got, one)
     np.testing.assert_array_equal(got, cpu_render_scene(scene, cfg))
     assert sr._render.n_graphs() == 1
@@ -1240,9 +1241,9 @@ def test_cuda_sharded_frame_on_two_cards(fine_impl):
                      (["cuda:0", "cuda:1", "cuda:0", "cuda:1"], 1),
                      (["cuda:1", "cuda:0"], 2)):
         sr = ShardedRenderer(cfg, mesh, fine_impl=fine_impl, interleave=il)
-        kernels.reset_launches()
+        tracing.reset_launches()
         got = sr.render(scene)
-        assert kernels.LAUNCHES["expand"] == len(mesh) * il, mesh
+        assert tracing.LAUNCHES["expand"] == len(mesh) * il, mesh
         np.testing.assert_array_equal(got, one, err_msg=str(mesh))
         np.testing.assert_array_equal(got, cpu_render_scene(scene, cfg))
         assert sr._render.n_graphs() == 2
@@ -1268,10 +1269,10 @@ def test_cuda_probe_div_equals_plain_and_numpy():
     for n in (a.size, 1027):
         an, bn = a.reshape(-1)[:n].copy(), b.reshape(-1)[:n].copy()
         at, bt = torch.from_numpy(an).cuda(), torch.from_numpy(bn).cuda()
-        kernels.reset_launches()
+        tracing.reset_launches()
         got = probes.probe_div(at, bt)
-        assert kernels.LAUNCHES["probe_div"] == 1
-        assert kernels.LAUNCHES["probe_numerics"] == 0
+        assert tracing.LAUNCHES["probe_div"] == 1
+        assert tracing.LAUNCHES["probe_numerics"] == 0
         assert _same_bits(got, probes.probe_div_plain(at, bt))
         assert _same_bits(got, probes.probe_numerics("div", at, bt))
         assert _same_bits(got.cpu(), torch.from_numpy(an / bn))
@@ -1374,14 +1375,14 @@ def test_cuda_probe_mosaic_equals_plain(fill):
     and on the CPU (NaN words included)."""
     _needs_cuda()
     from piet_tpu_torch.tools import mosaic_probe
-    kernels.reset_launches()
+    tracing.reset_launches()
     for name in probes.MOSAIC_PROBES:
         x = torch.from_numpy(mosaic_probe.probe_input(name)).cuda()
         got = probes.probe_mosaic(name, x, fill)
         assert _same_bits(got, probes.probe_mosaic_plain(name, x, fill)), name
         assert _same_bits(got.cpu(),
                           probes.probe_mosaic_plain(name, x.cpu(), fill)), name
-    assert kernels.LAUNCHES["probe_mosaic"] == len(probes.MOSAIC_PROBES)
+    assert tracing.LAUNCHES["probe_mosaic"] == len(probes.MOSAIC_PROBES)
 
 
 @pytest.mark.cuda
@@ -1399,7 +1400,7 @@ def test_cuda_probe_mosaic_batch_equals_plain(batch):
              "one": ["dynsub_statlane"]}[batch]
     x = torch.from_numpy(mosaic_probe.probe_input(names[0])).cuda()
     fill_sets = (probes.FILLS, (probes.FILLS[0],), (probes.FILLS[1],))
-    kernels.reset_launches()
+    tracing.reset_launches()
     for fills in fill_sets:
         got = probes.probe_mosaic_batch(names, x, fills)
         torch.cuda.synchronize()
@@ -1410,7 +1411,7 @@ def test_cuda_probe_mosaic_batch_equals_plain(batch):
                     name, x, fill)), (name, fill)
                 assert _same_bits(got[f, j].cpu(), probes.probe_mosaic_plain(
                     name, x.cpu(), fill)), (name, fill)
-    assert kernels.LAUNCHES["probe_mosaic"] == len(fill_sets)
+    assert tracing.LAUNCHES["probe_mosaic"] == len(fill_sets)
 
 
 @pytest.mark.cuda

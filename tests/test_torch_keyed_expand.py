@@ -34,7 +34,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from piet_tpu.ops import expand as jexpand  # noqa: E402
 from piet_tpu.ops import keyed as jkeyed  # noqa: E402
-from piet_tpu_torch import kernels  # noqa: E402
+from piet_tpu_torch import kernels, tracing  # noqa: E402
 from piet_tpu_torch.config import RenderConfig  # noqa: E402
 from piet_tpu_torch.ops import coarse, expand, keyed  # noqa: E402
 from piet_tpu_torch.ops.hitfuse import (K_CAND, K_CEND,  # noqa: E402
@@ -122,9 +122,9 @@ KEYED_RECORDS = {
 def test_record_keyed_sums_match_jax(case):
     rec, n_live, n_out = KEYED_RECORDS[case]()
     assert rec.shape[1] == 24 and n_live.shape == (1,)
-    kernels.reset_launches()
+    tracing.reset_launches()
     emit, delta = keyed.record_keyed_sums(rec, n_live, n_out)
-    assert kernels.LAUNCHES["keyed"] == 0          # the plain version
+    assert tracing.LAUNCHES["keyed"] == 0          # the plain version
     assert emit.dtype == torch.int32 and emit.shape == (n_out,)
     assert delta.dtype == torch.float32 and delta.shape == (n_out,)
     for impl in ("pallas", "xla"):

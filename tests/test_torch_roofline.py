@@ -148,7 +148,8 @@ def test_constants_match_their_sources():
 
 
 def test_chip_smoke_takes_the_peaks_from_the_port():
-    """The peaks and bound() exist once: chip_smoke.py imports them."""
+    """The peaks exist once: chip_smoke.py repeats none of them and takes
+    what it checks against them (frame_roofline) from the port."""
     text = (ROOT / "chip_smoke.py").read_text()
     assert "3.35e12" not in text and "67e12" not in text
     assert "from piet_tpu_torch.roofline import" in text

@@ -417,40 +417,6 @@ def test_delivery_ops_count_the_data():
             676 * probes.delivery_ops(d, v, 2))
 
 
-def test_ab_runs_in_a_palindrome_and_lines(tmp_path):
-    """The A/B tools' runner (pairing_ab, probes_ab): every tree's worker
-    in its own process from its root, in the order A B C C B A, each
-    run's last JSON line kept; then one line a number with each tree's
-    mean and runs (a list within a run taken as its mean; "library"
-    skipped; a number only some trees have, only those)."""
-    from piet_tpu_torch.tools import ab_lines, ab_runs
-    script = tmp_path / "worker.py"
-    log = tmp_path / "order.txt"
-    script.write_text(
-        "import json, os, sys\n"
-        f"open({str(log)!r}, 'a').write(os.path.basename(os.getcwd()))\n"
-        "root = os.path.basename(sys.argv[2])\n"
-        "n = len(open(" + repr(str(log)) + ").read())\n"
-        "out = {'library': 'x', 'ms': [n, n + 1]}\n"
-        "if root != 'C':\n"
-        "    out['only AB'] = 2.0\n"
-        "print('noise')\n"
-        "print(json.dumps(out))\n")
-    trees = {}
-    for t in "ABC":
-        (tmp_path / t).mkdir()
-        trees[t] = str(tmp_path / t)
-    runs = ab_runs(str(script), trees)
-    assert log.read_text() == "ABCCBA"
-    assert [r["ms"] for r in runs["A"]] == [[1, 2], [6, 7]]
-    assert ab_lines(runs) == [
-        "ab ms: A 4.0000 (1.5000, 6.5000), B 4.0000 (2.5000, 5.5000), "
-        "C 4.0000 (3.5000, 4.5000)",
-        "ab only AB: A 2.0000 (2.0000, 2.0000), B 2.0000 (2.0000, 2.0000)"]
-    (tmp_path / "bad.py").write_text("raise SystemExit(3)\n")
-    assert ab_runs(str(tmp_path / "bad.py"), trees) is None
-
-
 # ---- fine_entry_bench ----------------------------------------------------
 
 @pytest.mark.parametrize("n", [2, 34])
