@@ -42,7 +42,9 @@ line a check; any failure raises and exits non-zero:
      affine tiger's, its backdrop on the static and the affine tiger's,
      and the generic gather on the index streams of those three calls;
      the dense tail on the sorted records of the static tiger's and the
-     three group fixtures' dense passes; fine_dense on the static tiger's
+     three group fixtures' dense passes; seg_rows on the segment
+     derivation of the 19.2x tiger at 3840x2160 spun on the card (rows,
+     hit counts, offsets and total; one launch); fine_dense on the static tiger's
      dense PTCL in both instantiations (fine_rasterize and
      fine_rasterize_xla), in the group one on the three fixtures, in both
      on the tiger's at 16x16 tiles and on the synthetic PTCLs of
@@ -290,6 +292,40 @@ def animated_fixture(dev, fine_impl="entries"):
     return cfg, render_t, tmpl.n_items, tmpl.n_points
 
 
+def tiger_4k_seg_rows(dev):
+    """The segment rows' call of the 19.2x tiger at 3840x2160 spun to the
+    affine demo's second frame (its capacities bucketed, as the anim
+    cell's): ((the call's arguments, keywords), the derivation's
+    seg_rows launches)."""
+    import torch
+    from piet_tpu_torch import tracing
+    from piet_tpu_torch.host import RenderConfig, fit_capacities, make_tiger
+    from piet_tpu_torch.ops import candfuse, coarse
+    from piet_tpu_torch.scene import affine
+
+    scene = make_tiger(scale=19.2)
+    cfg = fit_capacities(scene, RenderConfig(width=3840, height=2160,
+                                             tile_height=32, tile_width=128),
+                         bucket=True)
+
+    def mats_fn(t):
+        a = t * (2.0 * math.pi / PERIOD)
+        return affine.rotation_about(1920.0, 1080.0, a,
+                                     1.0 + ZOOM * torch.sin(a))
+
+    render_t = affine.make_affine_render_fn(cfg, scene, mats_fn, device=dev)
+    st = render_t.scene_at(T_FRAMES[1])
+    ci = candfuse.cand_prep(st, tiles_x=cfg.tiles_x, tiles_y=cfg.tiles_y,
+                            tile_w=cfg.tile_width, tile_h=cfg.tile_height)
+    taps = {}
+    with tracing.launches_apart() as launches:
+        coarse.derive_seg_stage(st, ci.cand_pack[:, 15:24],
+                                tile_w=cfg.tile_width,
+                                tile_h=cfg.tile_height,
+                                max_segments=cfg.max_segments, taps=taps)
+    return taps["seg_rows"], launches["seg_rows"]
+
+
 def dense_inputs(staged, cfg):
     """(counts (tiles_y, tiles_x), tags, args, fine kwargs): the dense PTCL
     of a staged scene, as the dense route hands it to its interpreter."""
@@ -353,7 +389,7 @@ def main() -> int:
     from piet_tpu_torch.host import cpu_render_scene, make_tiger
     from piet_tpu_torch.ops import (candfuse, coarse, dense_tail, expand,
                                     fine, fine_xla, gatherm, hitfuse, keyed,
-                                    pairing, sort)
+                                    pairing, seg_rows, sort)
     from piet_tpu_torch.raster.synth_entries import synth_entry_streams
     from piet_tpu_torch.raster.synth_ptcl import synth_dense_ptcl
     from piet_tpu_torch.renderer.renderer import (Renderer,
@@ -418,6 +454,12 @@ def main() -> int:
     fkw = dict(tile_h=cfg.tile_height, tile_w=cfg.tile_width,
                tiles_x=cfg.tiles_x)
     exp_args = atap["expand"]
+    # The segment rows of the 4K tiger spun on the card: one launch.
+    (seg_args, seg_kw), seg_launches = tiger_4k_seg_rows(dev)
+    print(f"kernel seg_rows: affine tiger 3840x2160 {seg_args[0].shape[0]} "
+          f"slots, {int(seg_args[3][0])} live; launches of the derivation "
+          f"{seg_launches}", flush=True)
+    assert seg_launches == 1
     keyed_args = atap["keyed"]
     # gatherm: the affine tiger's endpoint fetch and backdrop (a frame's
     # calls), the static tiger's backdrop; and the generic gather on the
@@ -655,6 +697,9 @@ def main() -> int:
                          for a, _, k in tail_cases), ()),
             lambda: sum((dense_tail.dense_tail_plain(*a, live, **k)
                          for a, live, k in tail_cases), ())),
+        # The 4K affine tiger's rows, hit counts, offsets and total.
+        "seg_rows": (lambda: seg_rows.seg_rows(*seg_args, **seg_kw),
+                     lambda: seg_rows.seg_rows_plain(*seg_args, **seg_kw)),
         # Both instantiations: the group one on the tiger's and the
         # fixtures' PTCLs, both on the tiger's, the 16x16 tiger's and the
         # synthetic ones.

@@ -68,8 +68,15 @@ __device__ __forceinline__ float sgn(float x) {
 }
 // Saturating float -> int32 (NaN -> 0), as XLA converts.
 __device__ __forceinline__ int f2i_sat(float x) { return __float2int_rz(x); }
+// int32 arithmetic that wraps, as torch's int32 tensors do.
 __device__ __forceinline__ int wrap_add(int a, int b) {
   return (int)((unsigned)a + (unsigned)b);
+}
+__device__ __forceinline__ int wrap_sub(int a, int b) {
+  return (int)((unsigned)a - (unsigned)b);
+}
+__device__ __forceinline__ int wrap_mul(int a, int b) {
+  return (int)((unsigned)a * (unsigned)b);
 }
 
 // Exact floor-div/mod of small non-negative ints via f32 with residue
@@ -128,6 +135,15 @@ __device__ __forceinline__ float div_det(float a, float b) {
   }
   const bool ok = (b != 0.f) && (fabsf(q0) < INFINITY) && (q0 == q0);
   return ok ? best_q : q0;
+}
+
+// x*x + y*y from exact split squares (contraction-immune).
+__device__ __forceinline__ float dot2_det(float x, float y) {
+  const float cx = x * 4097.f, cy = y * 4097.f;
+  const float xh = cx - (cx - x), yh = cy - (cy - y);
+  const float xl = x - xh, yl = y - yh;
+  return (((xh * xh) + (2.f * (xh * xl))) + (xl * xl)) +
+         (((yh * yh) + (2.f * (yh * yl))) + (yl * yl));
 }
 
 __device__ __forceinline__ float line_field_sq(const float* a, float X,

@@ -20,7 +20,8 @@ bitwise identical, so the port drops the gate.  The same holds for the
 JAX pass's optional engines: the port always takes ``expand_rows``
 (ops/expand.py), the keyed sums (ops/keyed.py) and the row gather
 (ops/gatherm.py: the endpoint fetch and the backdrop, each one call), in
-both branches.  Where the packed sort key ``tile * 2*(NI+1) + item*2 +
+both branches, and the derived segment stage's rows are one call
+(ops/seg_rows.py).  Where the packed sort key ``tile * 2*(NI+1) + item*2 +
 class`` would reach 2^24 (inexact in f32), the sort takes two keys,
 (tile, item*2 + class), as the JAX pass does.  Entry pairing
 (``pair="compact"`` or ``"hole"``, ``PIET_PAIR`` in the renderer) runs
@@ -54,13 +55,14 @@ from ..scene.scene import (FLAG_BRUSH_LINEAR, FLAG_BRUSH_RADIAL,
                            FLAG_POP_LAYER, TAG_CIRCLE, TAG_CLIP, TAG_FILL,
                            TAG_LAYER, TAG_LINE, TAG_POLY, TAG_POP)
 from .candfuse import cand_prep_expand
-from .cmd_math import _f, div_det, dot2_det
+from .cmd_math import _f
 from .dense_tail import dense_tail, meta_bits
 from .expand import expand_rows
 from .gatherm import backdrop_from_csum, gather_endpoints
 from .hitfuse import hit_records_fused, split_fused
 from .keyed import record_keyed_sums
 from .pairing import pair_entries, resolve_pair_mode
+from .seg_rows import seg_rows
 from .sort import stable_sort_multi
 
 _INF = float("inf")
@@ -72,7 +74,9 @@ F32, I32 = torch.float32, torch.int32
 #: does several JAX stages, the probe stands after the kernel under the
 #: group's first name: kernel A is "cand_expand"; kernel B "hit_expand"
 #: (JAX's "hit_gather" and "hit_tests" too); the one-call keyed sums
-#: "cand_emit" (and "del_scatter").  "tile_reduce" runs to the end of the
+#: "cand_emit" (and "del_scatter"); the segment rows' call (ops/seg_rows.py)
+#: "seg_derive" (and "seg_rects", whose probe follows it with no device
+#: op between).  "tile_reduce" runs to the end of the
 #: pass (the bail, and on the dense route the dense tail).  The
 #: segment stages ("seg_expand" .. "seg_rects") run only where the
 #: segments are derived on the device; "pairing" only on a paired entries
@@ -198,14 +202,14 @@ def derive_seg_stage(scene: DeviceScene, item_pack: torch.Tensor, *,
     the host: the (S, 27) segment rows as int32 bits, bitwise equal to
     the host's on every live segment, and the hit counts.  (Dead rows,
     which no record reads, keep the JAX device pass's words where the
-    host stage writes zeros.)  Eager PyTorch rounds every product on its
-    own, so the JAX pass's contraction barriers (``_bar``) have no
-    counterpart here.  ``probe``: the pass's stage probes (see
+    host stage writes zeros.)  The item glue, the expansion
+    (ops/expand.py) and the endpoint gather (ops/gatherm.py) come first;
+    the rows, the hit counts and their scan are one call of
+    ops/seg_rows.py.  ``probe``: the pass's stage probes (see
     :func:`coarse_rasterize`).
     """
     dev = item_pack.device
     NI = item_pack.shape[0]
-    twf, thf = float(tile_w), float(tile_h)
     tags = item_pack[:, 0]
     # Fill items: n wrap-around segments; poly: n-1; line: 1; circle: 0.
     is_fill_item = (tags == TAG_FILL) | (tags == TAG_CLIP)
@@ -227,15 +231,6 @@ def derive_seg_stage(scene: DeviceScene, item_pack: torch.Tensor, *,
         taps["expand"] = (item_rows, seg_counts, max_segments, seg_excl)
     sitem = expand_rows(item_rows, seg_counts, max_segments, seg_excl)
     probe("seg_expand", sitem)
-    sitem_f = sitem.view(F32)
-    seg_idx = torch.arange(max_segments, dtype=I32, device=dev)
-    seg_valid = seg_idx < n_segs
-    seg_item = sitem[:, 11]
-    s_tag, s_cand_excl = sitem[:, 0], sitem[:, 3]
-    s_bx0, s_by0, s_bx1, s_by1, s_bw = (sitem[:, 4], sitem[:, 5],
-                                        sitem[:, 6], sitem[:, 7],
-                                        sitem[:, 8])
-    s_is_fill_tag = (s_tag == TAG_FILL) | (s_tag == TAG_CLIP)
     # Endpoints, one gatherm call: points at i0 = pt_offset + (slot - the
     # item's first slot) and i0 + 1, the fill wrap-around from the carried
     # first point, +0.0 on dead slots.  (The JAX package refuses the
@@ -246,92 +241,20 @@ def derive_seg_stage(scene: DeviceScene, item_pack: torch.Tensor, *,
             ("endpoints", (sitem, scene.points, n_segs)))
     p0, p1 = gather_endpoints(sitem, scene.points, n_segs)
     probe("seg_points", p0, p1)
-    sx, sy = p0[:, 0], p0[:, 1]
-    ex, ey = p1[:, 0], p1[:, 1]
-    a = ey - sy
-    b = sx - ex
-    c = -((a * sx) + (b * sy))
-    xmn = torch.minimum(p0, p1)
-    xmx = torch.maximum(p0, p1)
-    s_hw = 0.5 * sitem_f[:, 9] + 0.5
-    is_fill_seg = seg_valid & s_is_fill_tag
-    is_stroke_seg = seg_valid & ((s_tag == TAG_POLY) | (s_tag == TAG_LINE))
-    probe("seg_derive", a, b, c, xmn, xmx)
-
-    # ---- per-segment emission rects ------------------------------------
-    # Fill: exact solve of the reference's extent conditions (tile dims
-    # are powers of two).  Stroke: the rect of the inflated segment, each
-    # end probed one tile further with the per-record cull's own f32
-    # expressions.  Line items: the item bbox rect.
-    fx_lo = torch.floor(xmn[:, 0] / twf).to(I32)
-    fx_hi = torch.ceil(xmx[:, 0] / twf).to(I32) - 1
-    fy_lo = torch.floor(xmn[:, 1] / thf).to(I32)
-    fy_hi = torch.floor(xmx[:, 1] / thf).to(I32)
-
-    def _stroke_range(lo_v, hi_v, dim, step):
-        lo = torch.floor(lo_v / step).to(I32)
-        hi = torch.ceil(hi_v / step).to(I32) - 1
-
-        def passes(t):
-            o = t.to(F32) * step
-            return (xmx[:, dim] > o - s_hw) & (xmn[:, dim] < o + step + s_hw)
-
-        lo = torch.where(passes(lo - 1), lo - 1, lo)
-        hi = torch.where(passes(hi + 1), hi + 1, hi)
-        return lo, hi
-
-    st_x_lo, st_x_hi = _stroke_range(xmn[:, 0] - s_hw, xmx[:, 0] + s_hw,
-                                     0, twf)
-    st_y_lo, st_y_hi = _stroke_range(xmn[:, 1] - s_hw, xmx[:, 1] + s_hw,
-                                     1, thf)
-    W = torch.where
-    is_line_item = s_tag == TAG_LINE
-    r_x_lo = W(is_fill_seg, fx_lo, W(is_line_item, s_bx0, st_x_lo))
-    r_x_hi = W(is_fill_seg, fx_hi, W(is_line_item, s_bx1, st_x_hi))
-    r_y_lo = W(is_fill_seg, fy_lo, W(is_line_item, s_by0, st_y_lo))
-    r_y_hi = W(is_fill_seg, fy_hi, W(is_line_item, s_by1, st_y_hi))
-    # Clip to the item's bbox rect (the reference's per-tile hit gate).
-    r_x_lo = torch.maximum(r_x_lo, s_bx0)
-    r_x_hi = torch.minimum(r_x_hi, s_bx1)
-    r_y_lo = torch.maximum(r_y_lo, s_by0)
-    r_y_hi = torch.minimum(r_y_hi, s_by1)
-    r_w = torch.clamp(r_x_hi - r_x_lo + 1, min=0)
-    r_h = torch.clamp(r_y_hi - r_y_lo + 1, min=0)
-    # A fill segment with winding rows but an empty column range still
-    # gets one column: its records carry the per-row crossing emission.
-    widen = (is_fill_seg & (a != 0.0) & (r_w == 0) & (r_h > 0)
-             & (s_bx0 <= s_bx1))
-    wcol = torch.minimum(torch.maximum(fx_lo, s_bx0), s_bx1)
-    r_x_lo = W(widen, wcol, r_x_lo)
-    r_x_hi = W(widen, wcol, r_x_hi)
-    r_w = W(widen, 1, r_w)
-    hit_counts = W(seg_valid, r_w * r_h, 0)
-    hit_excl, hit_incl = _exclusive_cumsum(hit_counts)
+    # The rows, the hit counts, their scan and total: one call of
+    # ops/seg_rows.py (one kernel call on the card).  The probes hold views
+    # of its rows: the line, the bounds, the counts and offsets.
+    seg_kw = dict(tile_w=tile_w, tile_h=tile_h)
+    if taps is not None:
+        taps["seg_rows"] = ((sitem, p0, p1, n_segs), seg_kw)
+    rows, hit_counts, hit_excl, n_hits = seg_rows(sitem, p0, p1, n_segs,
+                                                  **seg_kw)
+    rows_f = rows.view(F32)
+    probe("seg_derive", rows_f[:, 4], rows_f[:, 5], rows_f[:, 6],
+          rows_f[:, 7:9], rows_f[:, 9:11])
     probe("seg_rects", hit_counts, hit_excl)
-
-    seg_flags = (is_fill_seg.to(I32) | (is_stroke_seg.to(I32) << 1)
-                 | (is_line_item.to(I32) << 2))
-    seg_i32 = torch.stack(
-        [seg_flags, r_x_lo, r_y_lo, torch.clamp(r_w, min=1), seg_item,
-         s_cand_excl, s_by0, torch.clamp(s_bw, min=1), s_bx0, s_by1,
-         s_bx1], dim=1)                                  # (S, 11)
-    # Per-segment constants of the division-free fine math.
-    lvx = ex - sx
-    lvy = ey - sy
-    s_invd = div_det(1.0, dot2_det(lvx, lvy))
-    s_m = div_det(lvx, lvy)
-    s_K = div_det(-lvy, torch.abs(lvx))
-    s_m = W(torch.abs(s_m) < _INF, s_m, 0.0)
-    s_K = W(torch.abs(s_K) < _INF, s_K, 0.0)
-    seg_rows = torch.cat(
-        [_bits(torch.stack([sx, sy, ex, ey, a, b, c, xmn[:, 0], xmn[:, 1],
-                            xmx[:, 0], xmx[:, 1], s_hw], dim=1)),
-         seg_i32,
-         _bits(torch.stack([s_invd, s_m, s_K], dim=1)),
-         hit_excl[:, None]], dim=1).contiguous()        # (S, 27)
-    tracing.mark("seg_rows")
-    return SegPre(seg_rows=seg_rows, hit_counts=hit_counts,
-                  hit_excl=hit_excl, n_segs=n_segs, n_hits=hit_incl[-1:])
+    return SegPre(seg_rows=rows, hit_counts=hit_counts, hit_excl=hit_excl,
+                  n_segs=n_segs, n_hits=n_hits)
 
 
 def sort_key_bounds(n_tiles: int, n_items: int) -> tuple:
@@ -370,7 +293,8 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
     "hitfuse", "sort" -- the keys tuple, the values and the key bounds;
     "keyed" -- the hit records, their live count and n_out; "gatherm" --
     a list of (site, arguments) of ``gatherm.SITES``, one a call;
-    "expand" on the device-derived segment stage; "pairing" -- the
+    "expand" and "seg_rows" -- the rows' inputs and keywords -- on the
+    device-derived segment stage; "pairing" -- the
     compaction's bundle and keep mask; "dense_tail" -- the dense tail's
     tensors, the live mask its plain version reads, and its keywords) --
     for tests and chip_smoke.py.

@@ -36,15 +36,16 @@ is captured does not exist when it is replayed.  So while
 ``CapturedStep`` captures a step it records a map: each stage of the
 frame calls :func:`mark` at its end, and ``mark`` counts the device nodes
 (kernel, memcpy, memset) captured so far.  The map is a list of
-``(stage, nodes in the stage)`` in capture order; the frame's ops all run
-on one stream, so the graph is a chain and a replay runs its nodes in
-that order.  Stages: ``animate`` (a device animation's transform), the
-coarse pass's probes (``ops/coarse.py::PROBE_STAGES``) with ``seg_rows``
-after ``seg_rects`` (the rest of the device segment derivation: the
-rows' constants and assembly, which no probe closes), ``fine``,
-``present`` (the composite, the stats and the output's assembly), and
-``rest`` for nodes after the last mark.  Outside a capture ``mark`` costs
-one check; on the CPU there is no capture and no map.
+``(stage, nodes in the stage)`` in capture order, and holds only stages
+that captured a node (every count > 0): a stage whose work an earlier
+stage's kernel did (``seg_rects``, in the segment rows' kernel that
+``seg_derive`` holds) is left out.  The frame's ops all run on one
+stream, so the graph is a chain and a replay runs its nodes in that
+order.  Stages: ``animate`` (a device animation's transform), the coarse
+pass's probes (``ops/coarse.py::PROBE_STAGES``), ``fine``, ``present``
+(the composite, the stats and the output's assembly), and ``rest`` for
+nodes after the last mark.  Outside a capture ``mark`` costs one check;
+on the CPU there is no capture and no map.
 """
 
 from __future__ import annotations
@@ -105,10 +106,10 @@ def span(name: str):
 #: each, and ``probe_numerics``' division op, launched for
 #: ``div_probe``, counts as "probe_div".
 LAUNCHES = {"candfuse": 0, "hitfuse": 0, "sort": 0, "fine": 0, "expand": 0,
-            "keyed": 0, "gatherm": 0, "dense_tail": 0, "fine_dense": 0,
-            "fine_paired": 0, "expand_pairing": 0, "probe_div": 0,
-            "probe_numerics": 0, "probe_halfmix": 0, "probe_delivery": 0,
-            "probe_mosaic": 0, "probe_dma16": 0}
+            "keyed": 0, "gatherm": 0, "dense_tail": 0, "seg_rows": 0,
+            "fine_dense": 0, "fine_paired": 0, "expand_pairing": 0,
+            "probe_div": 0, "probe_numerics": 0, "probe_halfmix": 0,
+            "probe_delivery": 0, "probe_mosaic": 0, "probe_dma16": 0}
 
 #: Scenes staged by ``prepare_scene``, by where their segment stage is
 #: computed: "host" (``build_seg_pre``, staged with the scene) or "device"
@@ -231,7 +232,8 @@ class _StageMap:
 
     def mark(self, stage: str) -> None:
         n = captured_device_nodes(self.stream)
-        self.stages.append((stage, n - self.done))
+        if n > self.done:
+            self.stages.append((stage, n - self.done))
         self.done = n
 
 
@@ -240,8 +242,8 @@ _RECORDING: Optional[_StageMap] = None
 
 def mark(stage: str) -> None:
     """End stage ``stage`` of the step being captured: its device nodes
-    are those captured since the previous mark.  Does nothing outside a
-    capture that records a map."""
+    are those captured since the previous mark (none: the map leaves it
+    out).  Does nothing outside a capture that records a map."""
     if _RECORDING is not None:
         _RECORDING.mark(stage)
 
@@ -250,16 +252,14 @@ def mark(stage: str) -> None:
 def recording_stages(stream: int):
     """Record the stage map of the capture on ``stream`` inside the block
     (the block holds the capture): yields the map's list, filled when the
-    block ends, with nodes after the last mark as ``rest``.  The map is
-    appended to :data:`GRAPHS`."""
+    block ends, with nodes after the last mark as ``rest``; a stage with no
+    node is left out.  The map is appended to :data:`GRAPHS`."""
     global _RECORDING
     rec = _StageMap(stream)
     _RECORDING = rec
     try:
         yield rec.stages
         rec.mark("rest")
-        if rec.stages[-1][1] == 0:
-            rec.stages.pop()
     finally:
         _RECORDING = None
     GRAPHS.append(rec.stages)

@@ -240,6 +240,23 @@ def test_a_map_ends_at_its_last_mark_when_nothing_follows(clean_tables,
     assert tracing._RECORDING is None
 
 
+def test_a_stage_that_captured_no_node_is_left_out(clean_tables,
+                                                   monkeypatch):
+    """A mark with no node since the previous one (a stage whose work an
+    earlier kernel did) adds nothing: the map stays a partition of the
+    graph's nodes with every count > 0."""
+    cuda = _FakeCuda()
+    cuda.install(monkeypatch)
+    with tracing.recording_stages(1) as stages:
+        cuda.nodes = 1
+        tracing.mark("seg_derive")
+        tracing.mark("seg_rects")
+        cuda.nodes = 4
+        tracing.mark("hit_expand")
+        tracing.mark("fine")
+    assert stages == [("seg_derive", 1), ("hit_expand", 3)]
+
+
 # ---- on the card ----------------------------------------------------------
 
 def _tiger_step(kind):
@@ -285,13 +302,13 @@ def test_cuda_stage_map_covers_the_frame_graph_in_order(kind):
     coarse = names[1:-2] if kind == "affine" else names[:-2]
     if kind == "affine":
         assert names[0] == "animate"
-    # Only the scene staged once carries the host segment stage.
-    assert ("seg_expand" in coarse and "seg_rows" in coarse) == (
+    # Only the scene staged once carries the host segment stage; the
+    # derivation's rows, counts and scan are the segment rows' kernel,
+    # in "seg_derive", so "seg_rects" captures no node and is left out.
+    assert ("seg_expand" in coarse and "seg_derive" in coarse) == (
         kind != "static"), names
-    # The device segment derivation ends with its rows (no probe there).
-    order = list(PROBE_STAGES)
-    order.insert(order.index("seg_rects") + 1, "seg_rows")
-    assert coarse == [s for s in order if s in coarse], names
+    assert "seg_rects" not in coarse, names
+    assert coarse == [s for s in PROBE_STAGES if s in coarse], names
     assert coarse[0] == "cand_expand" and coarse[-1] == "tile_reduce"
     assert sum(n for _, n in stages) == len(graph.device_ops(fn))
     for _ in range(3):
