@@ -22,8 +22,11 @@ A frame takes one of two routes (``fine_impl``):
   step is built, "off" unless it is set, as in the JAX package.
 
 ``"auto"``, the default of every entry point, is ``"dense"``: the JAX
-package's rule off a TPU, and the faster graphed route on the H100 at six
-of the seven cells measured (PERF.md).
+package's rule off a TPU, and the faster graphed route on the H100: the
+4K tiger replayed takes 0.926 ms a frame on it against 1.471 ms on the
+entries route (medians of the benchmark cells ``tiger_4k.replay`` and
+``tiger_4k_entries.replay`` on one NVIDIA H100 80GB HBM3 at 700 W,
+PERF.md section 5).
 
 A frame is one compiled step, as the JAX package's ``jax.jit`` makes it:
 :func:`make_render_fn` returns ``render(scene) -> (img, stats)``, which on
