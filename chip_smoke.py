@@ -42,7 +42,8 @@ line a check; any failure raises and exits non-zero:
      affine tiger's, its backdrop on the static and the affine tiger's,
      and the generic gather on the index streams of those three calls;
      the dense tail on the sorted records of the static tiger's and the
-     three group fixtures' dense passes; seg_rows on the segment
+     three group fixtures' dense passes; cand_rows on the static and the
+     affine tiger's coarse passes (entry rows and sort keys); seg_rows on the segment
      derivation of the 19.2x tiger at 3840x2160 spun on the card (rows,
      hit counts, offsets and total; one launch); fine_dense on the static tiger's
      dense PTCL in both instantiations (fine_rasterize and
@@ -387,9 +388,9 @@ def main() -> int:
     import numpy as np
     from piet_tpu_torch import kernels, tracing
     from piet_tpu_torch.host import cpu_render_scene, make_tiger
-    from piet_tpu_torch.ops import (candfuse, coarse, dense_tail, expand,
-                                    fine, fine_xla, gatherm, hitfuse, keyed,
-                                    pairing, seg_rows, sort)
+    from piet_tpu_torch.ops import (cand_rows, candfuse, coarse, dense_tail,
+                                    expand, fine, fine_xla, gatherm, hitfuse,
+                                    keyed, pairing, seg_rows, sort)
     from piet_tpu_torch.raster.synth_entries import synth_entry_streams
     from piet_tpu_torch.raster.synth_ptcl import synth_dense_ptcl
     from piet_tpu_torch.renderer.renderer import (Renderer,
@@ -454,6 +455,7 @@ def main() -> int:
     fkw = dict(tile_h=cfg.tile_height, tile_w=cfg.tile_width,
                tiles_x=cfg.tiles_x)
     exp_args = atap["expand"]
+    rows_cases = [taps["cand_rows"], atap["cand_rows"]]
     # The segment rows of the 4K tiger spun on the card: one launch.
     (seg_args, seg_kw), seg_launches = tiger_4k_seg_rows(dev)
     print(f"kernel seg_rows: affine tiger 3840x2160 {seg_args[0].shape[0]} "
@@ -697,6 +699,13 @@ def main() -> int:
                          for a, _, k in tail_cases), ()),
             lambda: sum((dense_tail.dense_tail_plain(*a, live, **k)
                          for a, live, k in tail_cases), ())),
+        # The static and the affine tiger's entry rows and sort keys.
+        "cand_rows": (
+            lambda: sum(((r,) + k for r, k in (
+                cand_rows.cand_rows(*a, **kw) for a, kw in rows_cases)), ()),
+            lambda: sum(((r,) + k for r, k in (
+                cand_rows.cand_rows_plain(*a, **kw) for a, kw in rows_cases)),
+                ())),
         # The 4K affine tiger's rows, hit counts, offsets and total.
         "seg_rows": (lambda: seg_rows.seg_rows(*seg_args, **seg_kw),
                      lambda: seg_rows.seg_rows_plain(*seg_args, **seg_kw)),
@@ -1104,9 +1113,10 @@ def main() -> int:
 
 
 #: Kernels of the entries route and the dense route of a frame.
-ENTRIES_KERNELS = ("candfuse", "hitfuse", "sort", "fine", "keyed", "gatherm")
+ENTRIES_KERNELS = ("candfuse", "hitfuse", "sort", "fine", "keyed", "gatherm",
+                   "cand_rows")
 DENSE_KERNELS = ("candfuse", "hitfuse", "sort", "dense_tail", "fine_dense",
-                 "keyed", "gatherm")
+                 "keyed", "gatherm", "cand_rows")
 #: Where phase 7's command lines write their PNGs (gitignored).
 CLI_OUT = "build/chip_smoke_cli"
 

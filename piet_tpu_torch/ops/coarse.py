@@ -5,8 +5,9 @@ host-staged (``seg_pre``, renderer/segstage.py) or derived on the device
 from the scene's points (``seg_pre=None``, the device-animation path:
 :func:`derive_seg_stage`) -- then the fused-record route: kernel A (the
 item rows and their candidate expansion), kernel B (hit records), keyed
-sums, the backdrop prefix, the candidate tail commands, one stable sort
-(kernel C) and the sorted gather.  ``output="entries"`` then adds the
+sums, the backdrop prefix, the entry rows and sort keys (the hit records'
+words and the candidates' tail commands, ops/cand_rows.py), one stable
+sort (kernel C) and the sorted gather.  ``output="entries"`` then adds the
 ``W_RUN`` run words, per-tile ranges and the bail; ``output="dense"``
 scatters the records into (T, CAP) command lists (``ops/dense_tail.py``).
 Each stage is one call, and each called op picks its kernel or its plain
@@ -21,9 +22,10 @@ JAX pass's optional engines: the port always takes ``expand_rows``
 (ops/expand.py), the keyed sums (ops/keyed.py) and the row gather
 (ops/gatherm.py: the endpoint fetch and the backdrop, each one call), in
 both branches, and the derived segment stage's rows are one call
-(ops/seg_rows.py).  Where the packed sort key ``tile * 2*(NI+1) + item*2 +
-class`` would reach 2^24 (inexact in f32), the sort takes two keys,
-(tile, item*2 + class), as the JAX pass does.  Entry pairing
+(ops/seg_rows.py), as are the entry rows and keys (ops/cand_rows.py).
+Where the packed sort key ``tile * 2*(NI+1) + item*2 + class`` would
+reach 2^24 (inexact in f32), the sort takes two keys, (tile, item*2 +
+class), as the JAX pass does.  Entry pairing
 (``pair="compact"`` or ``"hole"``, ``PIET_PAIR`` in the renderer) runs
 ``ops/pairing.py::pair_entries`` on the sorted entries, as the JAX pass
 does.
@@ -42,24 +44,16 @@ from typing import NamedTuple, Optional
 import torch
 
 from .. import tracing
-from ..layout.entry_stream import (ENTRY_WORDS, META_CLEAR_BIT,
-                                   META_OPAQUE_BIT, RUN_CAP, W_BAIL, W_RUN,
+from ..layout.entry_stream import (ENTRY_WORDS, RUN_CAP, W_BAIL, W_RUN,
                                    W_S0_TAG, W_S1_TAG)
-from ..raster.ptcl import (CMD_BEGIN_CLIP, CMD_BEGIN_LAYER, CMD_CIRCLE,
-                           CMD_DRAW_FILL, CMD_DRAW_LIN_GRAD,
-                           CMD_DRAW_RAD_GRAD, CMD_END_CLIP, CMD_END_LAYER,
-                           CMD_FILL, CMD_LINE, CMD_SOLID, CMD_STROKE,
-                           CMD_WIND)
-from ..scene.scene import (FLAG_BRUSH_LINEAR, FLAG_BRUSH_RADIAL,
-                           FLAG_FILL_CONT, FLAG_FILL_FINAL, FLAG_IN_GROUP,
-                           FLAG_POP_LAYER, TAG_CIRCLE, TAG_CLIP, TAG_FILL,
-                           TAG_LAYER, TAG_LINE, TAG_POLY, TAG_POP)
+from ..raster.ptcl import CMD_FILL, CMD_LINE
+from ..scene.scene import TAG_CLIP, TAG_FILL, TAG_LINE, TAG_POLY
+from .cand_rows import cand_rows
 from .candfuse import cand_prep_expand
-from .cmd_math import _f
 from .dense_tail import dense_tail, meta_bits
 from .expand import expand_rows
 from .gatherm import backdrop_from_csum, gather_endpoints
-from .hitfuse import hit_records_fused, split_fused
+from .hitfuse import hit_records_fused
 from .keyed import record_keyed_sums
 from .pairing import pair_entries, resolve_pair_mode
 from .seg_rows import seg_rows
@@ -356,12 +350,6 @@ def _coarse_pass(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
         taps["candfuse"] = (ci_in, dict(row0=row0, cap=max_candidates,
                                         tiles_x=tiles_x))
     ca_i = _bits(ca)
-    cf = ca[:, :15]
-    ci = ca_i[:, 15:24]
-    cg = ca[:, 25:32]
-    cand_idx = torch.arange(max_candidates, dtype=I32, device=dev)
-    cand_valid = cand_idx < n_cand
-    cand_item = ca_i[:, 24]
 
     # ---- segment stage: host-staged, or derived on the device ----------
     sp = scene.seg_pre
@@ -387,7 +375,6 @@ def _coarse_pass(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
                            dict(row0=row0, cap=max_hits, **hit_kw))
     hit_rec = hit_records_fused(seg_rows, sp.hit_counts, sp.hit_excl,
                                 n_hits, row0, max_hits, **hit_kw)
-    fused = split_fused(hit_rec)
     probe("hit_expand", hit_rec)
 
     # ---- per-candidate command counts and winding deltas ---------------
@@ -417,125 +404,17 @@ def _coarse_pass(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
     backdrop = backdrop_from_csum(csum, ca_i, cand_ty)
     probe("deltas", backdrop)
 
-    # ---- candidate tail commands ---------------------------------------
-    c_tag_item = ci[:, 0]
-    c_color_lin = cf[:, 0:4]
-    c_color_bits = ca_i[:, 9]
-    c_any = cand_emit > 0
-    c_backdrop_nz = backdrop != 0.0
-    cflags = cf[:, 10].to(I32)
-    c_even_odd = (cflags & 1).to(F32)
-    c_ingroup = (cflags & FLAG_IN_GROUP) != 0
-    c_grad_lin = (cflags & FLAG_BRUSH_LINEAR) != 0
-    c_grad_rad = (cflags & FLAG_BRUSH_RADIAL) != 0
-    c_is_grad_item = c_grad_lin | c_grad_rad
-    c_cont = (cflags & FLAG_FILL_CONT) != 0
-    c_final = (cflags & FLAG_FILL_FINAL) != 0
-
-    is_circle = cand_valid & (c_tag_item == TAG_CIRCLE)
-    is_fill_cand = cand_valid & (c_tag_item == TAG_FILL)
-    is_wind = is_fill_cand & c_cont & c_backdrop_nz
-    is_grad = (is_fill_cand & c_is_grad_item & ~c_cont
-               & (c_any | c_backdrop_nz | c_final))
-    is_drawfill = (is_fill_cand & ~c_is_grad_item & ~c_cont
-                   & (c_any | c_final))
-    is_solid = (is_fill_cand & ~c_is_grad_item & ~c_cont & ~c_final
-                & ~c_any & c_backdrop_nz)
-    is_stroke = cand_valid & ((c_tag_item == TAG_POLY)
-                              | (c_tag_item == TAG_LINE)) & c_any
-    is_clip = cand_valid & (c_tag_item == TAG_CLIP)
-    is_layer = cand_valid & (c_tag_item == TAG_LAYER)
-    is_pop = cand_valid & (c_tag_item == TAG_POP)
-    pop_layer = is_pop & ((cflags & FLAG_POP_LAYER) != 0)
-    is_group_cmd = is_clip | is_layer | is_pop
-
-    cand_cmd_valid = (is_circle | is_drawfill | is_solid | is_stroke
-                      | is_grad | is_wind | is_group_cmd)
-    cand_tag = torch.full_like(c_tag_item, CMD_STROKE)
-    for cond, tag in ((is_pop, CMD_END_CLIP), (pop_layer, CMD_END_LAYER),
-                      (is_layer, CMD_BEGIN_LAYER), (is_clip, CMD_BEGIN_CLIP),
-                      (is_grad, CMD_DRAW_LIN_GRAD),
-                      (is_grad & c_grad_rad, CMD_DRAW_RAD_GRAD),
-                      (is_wind, CMD_WIND), (is_solid, CMD_SOLID),
-                      (is_drawfill, CMD_DRAW_FILL), (is_circle, CMD_CIRCLE)):
-        cand_tag = torch.where(cond, tag, cand_tag)
-
-    W = torch.where
-    cbb = cf[:, 4:8]
-    chw = cf[:, 8]
-    a0 = W(is_circle, cbb[:, 0],
-           W(is_drawfill, backdrop, W(is_stroke, chw, c_color_lin[:, 0])))
-    a1 = W(is_circle, cbb[:, 1],
-           W(is_solid, c_color_lin[:, 1], c_color_lin[:, 0]))
-    a2 = W(is_circle, cbb[:, 2],
-           W(is_solid, c_color_lin[:, 2], c_color_lin[:, 1]))
-    a3 = W(is_circle, cbb[:, 3],
-           W(is_solid, c_color_lin[:, 3], c_color_lin[:, 2]))
-    a4 = W(is_solid | is_circle, 0.0, c_color_lin[:, 3])
-    a5 = W(is_drawfill, c_even_odd, 0.0)
-    # Group commands: BeginClip [backdrop, even_odd]; EndLayer [alpha].
-    a0 = W(is_clip, backdrop,
-           W(pop_layer, 2.0 * chw, W(is_layer | is_pop, 0.0, a0)))
-    a1 = W(is_clip, c_even_odd, W(is_layer | is_pop, 0.0, a1))
-    a2 = W(is_group_cmd, 0.0, a2)
-    a3 = W(is_group_cmd, 0.0, a3)
-    a4 = W(is_group_cmd, 0.0, a4)
-    # Gradient resolves: [backdrop, params3, c0 rgba, c1 rgba].
-    a0 = W(is_grad, backdrop, a0)
-    a1 = W(is_grad, cg[:, 0], a1)
-    a2 = W(is_grad, cg[:, 1], a2)
-    a3 = W(is_grad, cg[:, 2], a3)
-    a4 = W(is_grad, c_color_lin[:, 0], a4)
-    a5 = W(is_grad, c_color_lin[:, 1], a5)
-    a6 = W(is_grad, c_color_lin[:, 2], 0.0)
-    a7 = W(is_grad, c_color_lin[:, 3], 0.0)
-    # Winding carry: [backdrop] only.
-    a0 = W(is_wind, backdrop, a0)
-    a1, a2, a3, a4, a5, a6, a7 = (W(is_wind, 0.0, v)
-                                  for v in (a1, a2, a3, a4, a5, a6, a7))
-    # Words 8-11: the draw's clip rect; none for group commands; the second
-    # gradient stop for gradient resolves.
-    rect = W(is_grad[:, None], cg[:, 3:7],
-             W((is_group_cmd | is_wind)[:, None], 0.0, cf[:, 11:15]))
-
-    # A clipped or in-group solid cannot bail the tile.
-    c_uncl = ((cf[:, 11] == _f(-1e9)) & (cf[:, 12] == _f(-1e9))
-              & (cf[:, 13] == _f(1e9)) & (cf[:, 14] == _f(1e9)))
-    is_opaque_solid = (is_solid & ((c_color_bits & 0xFF) == 0xFF) & c_uncl
-                       & ~c_ingroup)
-    cand_is_clear = (is_circle | is_drawfill | is_stroke | is_grad
-                     | (is_solid & ~(c_uncl & ~c_ingroup)) | is_group_cmd)
-
-    # ---- row assembly (int32 bit patterns) -----------------------------
-    hit_rows = _bits(fused["rows"])
-    cand_tag0 = W(cand_cmd_valid, cand_tag, 0)
-    cand_meta = (cand_cmd_valid.to(I32)
-                 | is_opaque_solid.to(I32) * META_OPAQUE_BIT
-                 | cand_is_clear.to(I32) * META_CLEAR_BIT)
-    cand_rows = torch.cat(
-        [_bits(torch.stack([cand_tag0.to(F32), a0, a1, a2, a3, a4, a5, a6,
-                            a7], dim=1)),              # W_S0_TAG, args 0..7
-         _bits(rect),                                  # args 8..11
-         W(is_opaque_solid, c_color_bits, 0)[:, None],  # W_BAIL
-         _bits(cand_meta.to(F32))[:, None],            # W_META
-         torch.zeros((max_candidates, 1), dtype=I32, device=dev)],  # W_RUN
-        dim=1)
-    all_rows = torch.cat([hit_rows, cand_rows])
+    # ---- entry rows and sort keys: the candidates' tail commands ---------
+    # Packed key (tile, item, class) or, with stride 0, the two keys; kernel
+    # B gave the hit records' keys in the same mode.
+    cr_args = (ca_i, cand_emit, backdrop, cand_tile, n_cand, hit_rec)
+    cr_kw = dict(stride=stride if packed_ok else 0)
+    if taps is not None:
+        taps["cand_rows"] = (cr_args, cr_kw)
+    all_rows, all_keys = cand_rows(*cr_args, **cr_kw)
     probe("rows", all_rows)
 
     # ---- global sort: key (tile, item, class), packed or unpacked -------
-    # Kernel B gives the hit records' keys in the same mode (stride 0:
-    # item * 2 in its key word, the tile in its tile word).
-    if packed_ok:
-        cand_key = W(cand_cmd_valid,
-                     (cand_tile * stride + cand_item * 2 + 1).to(F32), _INF)
-        all_keys = (torch.cat([fused["key"], cand_key]),)
-    else:
-        all_keys = (
-            torch.cat([fused["tile"], W(cand_cmd_valid, cand_tile.to(F32),
-                                         _INF)]),
-            torch.cat([fused["key"], W(cand_cmd_valid,
-                                       (cand_item * 2 + 1).to(F32), _INF)]))
     order_idx = torch.arange(E, dtype=I32, device=dev)
     if taps is not None:
         taps["sort"] = (all_keys, order_idx, bounds)
@@ -551,6 +430,7 @@ def _coarse_pass(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
         e_tile = torch.clamp(sorted_keys[0], max=float(n_tiles)).to(I32)
     probe("sort", e_tile, sorted_idx)
     e_rows = all_rows[sorted_idx.long()]
+    W = torch.where
     stream16 = W(live[:, None], e_rows, 0)
     probe("sorted_gather", stream16)
     diag = {
@@ -561,6 +441,7 @@ def _coarse_pass(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
         "cand_overflow": torch.clamp(n_cand[0] - max_candidates, min=0),
     }
     if output == "dense":
+        c_color_bits = ca_i[:, 9]
         tail = (stream16, sorted_idx, e_tile, c_color_bits)
         kw = dict(n_tiles=n_tiles, max_hits=max_hits,
                   cmd_capacity=cmd_capacity)

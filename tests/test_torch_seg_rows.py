@@ -139,6 +139,7 @@ def test_plain_rows_equal_the_host_stage(name):
     rows on every live segment and its hit counts, offsets and totals on
     every slot, with no kernel launched."""
     scene, cfg = SCENES[name]()
+    tracing.reset_launches()
     sp, _, launched = derive(prepare_scene(scene, cfg, "cpu", seg_pre=False),
                              cfg)
     host = build_seg_pre(scene, cfg)
