@@ -42,7 +42,10 @@ line a check; any failure raises and exits non-zero:
      affine tiger's, its backdrop on the static and the affine tiger's,
      and the generic gather on the index streams of those three calls;
      the dense tail on the sorted records of the static tiger's and the
-     three group fixtures' dense passes; cand_rows on the static and the
+     three group fixtures' dense passes; the entries tail (run words,
+     per-tile ranges, bail) on the static tiger's, the affine tiger's and
+     the unpacked configuration's entries passes and on the four paired
+     passes of phase 4e's scenes; cand_rows on the static and the
      affine tiger's coarse passes (entry rows and sort keys); seg_rows on the segment
      derivation of the 19.2x tiger at 3840x2160 spun on the card (rows,
      hit counts, offsets and total; one launch); fine_dense on the static tiger's
@@ -387,10 +390,12 @@ def main() -> int:
 
     import numpy as np
     from piet_tpu_torch import kernels, tracing
-    from piet_tpu_torch.host import cpu_render_scene, make_tiger
+    from piet_tpu_torch.host import (RenderConfig, cpu_render_scene,
+                                     fit_capacities, make_tiger)
     from piet_tpu_torch.ops import (cand_rows, candfuse, coarse, dense_tail,
-                                    expand, fine, fine_xla, gatherm, hitfuse,
-                                    keyed, pairing, seg_rows, sort)
+                                    entries_tail, expand, fine, fine_xla,
+                                    gatherm, hitfuse, keyed, pairing,
+                                    seg_rows, sort)
     from piet_tpu_torch.raster.synth_entries import synth_entry_streams
     from piet_tpu_torch.raster.synth_ptcl import synth_dense_ptcl
     from piet_tpu_torch.renderer.renderer import (Renderer,
@@ -456,6 +461,18 @@ def main() -> int:
                tiles_x=cfg.tiles_x)
     exp_args = atap["expand"]
     rows_cases = [taps["cand_rows"], atap["cand_rows"]]
+    # The entries tail on the same passes' taps (the unpacked and the
+    # paired passes' below), and on the pass of tiger_4k_entries.replay:
+    # the 19.2x tiger at 3840x2160 in 32x128 tiles, its capacities fitted.
+    etail_cases = [("tiger 1664x1664", taps["entries_tail"]),
+                   ("affine tiger 1664x1664", atap["entries_tail"])]
+    tiger_4k = make_tiger(scale=19.2)
+    cfg_4k = fit_capacities(tiger_4k, RenderConfig(
+        width=3840, height=2160, tile_height=32, tile_width=128))
+    taps_4k = {}
+    coarse.coarse_rasterize(Renderer(cfg_4k, dev).prepare(tiger_4k),
+                            taps=taps_4k, **coarse_kw(cfg_4k))
+    etail_cases.append(("tiger 3840x2160", taps_4k["entries_tail"]))
     # The segment rows of the 4K tiger spun on the card: one launch.
     (seg_args, seg_kw), seg_launches = tiger_4k_seg_rows(dev)
     print(f"kernel seg_rows: affine tiger 3840x2160 {seg_args[0].shape[0]} "
@@ -528,6 +545,8 @@ def main() -> int:
     utaps = {}
     coarse.coarse_rasterize(Renderer(unp_cfg, dev).prepare(cardioid),
                             taps=utaps, **coarse_kw(unp_cfg))
+    etail_cases.append(("unpacked cardioid 1024x1024",
+                        utaps["entries_tail"]))
     sort_keys, sort_val, sort_bounds = taps["sort"]
     # Kernel B on the static tiger's inputs, the unpacked configuration's
     # (stride 0) and the affine tiger's (segments derived on the device).
@@ -562,6 +581,7 @@ def main() -> int:
                 ce.first, ce.n_entries, _solid_to_present_u32(ce.solid),
                 ce.stream), dict(tile_h=c.tile_height, tile_w=c.tile_width,
                                  tiles_x=c.tiles_x, paired=True)))
+            etail_cases.append((f"{tag} {mode}", pt["entries_tail"]))
             if mode == "compact":
                 bundle, keep = pt["pairing"]
                 pair_bundles.append((bundle, keep))
@@ -699,6 +719,14 @@ def main() -> int:
                          for a, _, k in tail_cases), ()),
             lambda: sum((dense_tail.dense_tail_plain(*a, live, **k)
                          for a, live, k in tail_cases), ())),
+        # The entries tail of the static, affine, 4K and unpacked passes
+        # and of the paired ones: run words (unpaired), ranges, counts,
+        # bail.
+        "entries_tail": (
+            lambda: sum((entries_tail.entries_tail(*a, **k)
+                         for _, (a, k) in etail_cases), ()),
+            lambda: sum((entries_tail.entries_tail_plain(*a, **k)
+                         for _, (a, k) in etail_cases), ())),
         # The static and the affine tiger's entry rows and sort keys.
         "cand_rows": (
             lambda: sum(((r,) + k for r, k in (
@@ -736,6 +764,16 @@ def main() -> int:
         print(f"kernel {name}: {n_bad} mismatching words vs plain "
               f"(tolerance 0), max abs err {err}", flush=True)
         assert n_bad == 0, f"kernel {name} disagrees with its plain version"
+    # The entries tail case by case: each pass's rows and tiles.
+    for tag, ((stream, e_tile), k) in etail_cases:
+        got = entries_tail.entries_tail(stream, e_tile, **k)
+        want = entries_tail.entries_tail_plain(stream, e_tile, **k)
+        torch.cuda.synchronize()
+        n_bad = sum(bitwise(g, w)[0] for g, w in zip(got, want))
+        print(f"kernel entries_tail {tag}: {n_bad} mismatching words vs "
+              f"plain; {stream.shape[0]} rows, {k['n_tiles']} tiles, "
+              f"run words {k['run_words']}", flush=True)
+        assert n_bad == 0, f"entries_tail {tag}"
     # Kernel D on the synthetic streams against the numpy oracle of their
     # command lists (against its plain version in the table above).
     for name, a, k, oracle in synth_cases:
@@ -797,8 +835,8 @@ def main() -> int:
         assert launches["fine_dense"] > 0 and launches["fine"] == 0, launches
         assert launches["expand"] == 1, launches
         assert all(v > 0 for k, v in frame_counts(launches).items()
-                   if k not in ("fine", "fine_paired",
-                                "expand_pairing")), launches
+                   if k not in ("fine", "fine_paired", "expand_pairing",
+                                "entries_tail")), launches
     for name, gr in group_renderers.items():
         sc = group_scenes[name]
         tracing.reset_launches()
@@ -826,7 +864,8 @@ def main() -> int:
           f"{int(stats['overflow_cmds'])}", flush=True)
     assert n_bad == 0 and int(stats["overflow_cmds"]) == 0
     assert all(v > 0 for k, v in frame_counts(tracing.LAUNCHES).items()
-               if k not in ("fine", "fine_paired", "expand_pairing"))
+               if k not in ("fine", "fine_paired", "expand_pairing",
+                            "entries_tail"))
     # The renderer's other entry points on host-built animated frames.
     from piet_tpu_torch.scene.fixtures import make_animated_frame
     frames = [make_animated_frame(t) for t in T_FRAMES]
@@ -1114,7 +1153,7 @@ def main() -> int:
 
 #: Kernels of the entries route and the dense route of a frame.
 ENTRIES_KERNELS = ("candfuse", "hitfuse", "sort", "fine", "keyed", "gatherm",
-                   "cand_rows")
+                   "cand_rows", "entries_tail")
 DENSE_KERNELS = ("candfuse", "hitfuse", "sort", "dense_tail", "fine_dense",
                  "keyed", "gatherm", "cand_rows")
 #: Where phase 7's command lines write their PNGs (gitignored).
@@ -1219,13 +1258,15 @@ def phase_cli(card, dev, scene, cfg, tiger_gold, aff_render, aff_ni,
         run_cli(["render", "--scene", "tiger", "--width", "1664",
                  "--height", "1664", "--fine-impl", impl, "--out", str(png)],
                 ENTRIES_KERNELS if impl == "entries" else DENSE_KERNELS,
-                ("fine_dense",) if impl == "entries" else ("fine",))
+                ("fine_dense",) if impl == "entries"
+                else ("fine", "entries_tail"))
         tiger_png[impl] = read_png(str(png))
         check(f"render tiger 1664x1664 {impl}", tiger_png[impl], tiger_gold)
     svg = Path(TIGER_PATH)
     png = out / "tiger_svg.png"
     run_cli(["render", "--svg", str(svg), "--width", "1024", "--height",
-             "1024", "--out", str(png)], DENSE_KERNELS, ("fine",))
+             "1024", "--out", str(png)], DENSE_KERNELS,
+            ("fine", "entries_tail"))
     svg_scene = load_svg_file(str(svg), scale=None, target_width=1024)
     check("render --svg tiger 1024x1024 (the default route, dense)",
           read_png(str(png)),
@@ -1251,7 +1292,7 @@ def phase_cli(card, dev, scene, cfg, tiger_gold, aff_render, aff_ni,
         d = out / tag.replace(" ", "_").replace(",", "")
         lines = run_cli(anim + argv + ["--outdir", str(d)], DENSE_KERNELS
                         + (() if "host" in tag else ("expand",)),
-                        ("fine",))
+                        ("fine", "entries_tail"))
         print(f"cli animate {tag}: {lines[-2]} {lines[-1]}", flush=True)
         for i, fr in enumerate(frames):
             check(f"animate {tag} frame {i} (t={ts[i]:.4f})",
@@ -1270,7 +1311,7 @@ def phase_cli(card, dev, scene, cfg, tiger_gold, aff_render, aff_ni,
     for argv in (["bench", "--scene", "tiger", "--width", "1664", "--height",
                   "1664"],
                  ["bench", "--scene", "animated", "--reencode"]):
-        lines = run_cli(argv, DENSE_KERNELS, ("fine",))
+        lines = run_cli(argv, DENSE_KERNELS, ("fine", "entries_tail"))
         print("\n".join(f"cli bench: {ln}" for ln in lines[-3:]), flush=True)
         roofs.append(json.loads(lines[-3])["roofline"])
 
@@ -1570,7 +1611,7 @@ def phase_diag_tools(card, dev) -> None:
 #: kernels (each must launch) and the kernels it must not launch (static
 #: scenes stage their segments: no expand).
 BENCH_RUNS = (([], DENSE_KERNELS, ("fine", "expand", "fine_paired",
-                                   "expand_pairing")),
+                                   "expand_pairing", "entries_tail")),
               (["--fine-impl", "entries"], ENTRIES_KERNELS,
                ("fine_dense", "dense_tail", "expand", "fine_paired",
                 "expand_pairing")))

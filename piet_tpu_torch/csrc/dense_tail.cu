@@ -38,6 +38,7 @@
 // (tests/test_torch_dense_tail.py holds these facts on the CPU and the
 // kernel against the plain version on the card).
 #include "cmd_math.cuh"
+#include "owner_search.cuh"
 
 namespace {
 
@@ -45,7 +46,6 @@ using namespace piet;
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr unsigned FULL = 0xffffffffu;
 constexpr int W_META = 14;  // layout/entry_stream.py
 constexpr int META_NCMDS_MASK = 3, META_OPAQUE_BIT = 4;
 constexpr int SLOT_INT4 = 3;  // a slot's 12 operand words
@@ -67,24 +67,6 @@ struct TailArgs {
 // .to(int32) converts it.
 __device__ __forceinline__ int meta_of(const int* rows, int e) {
   return (int)__int_as_float(__ldg(rows + (size_t)e * ENTRY_WORDS + W_META));
-}
-
-// The first index of the non-decreasing v[0, n) whose value is at least
-// key (n if none), by one warp: each step probes 32 evenly spaced entries
-// of the remaining range [lo, hi], so E entries take about log32(E) loads.
-__device__ int warp_lower_bound(const int* v, int n, int key) {
-  const int lane = threadIdx.x & 31;
-  int lo = 0, hi = n;  // the answer lies in [lo, hi]
-  while (lo < hi) {
-    const int step = (hi - lo + 31) / 32;
-    const int p = lo + (lane + 1) * step - 1;
-    const unsigned ge = __ballot_sync(FULL, p >= hi || __ldg(v + p) >= key);
-    if (ge == 0) return hi;  // lane 31 probed hi - 1
-    const int k = __ffs(ge) - 1;
-    hi = min(lo + (k + 1) * step - 1, hi);
-    lo += k * step;
-  }
-  return lo;
 }
 
 __device__ __forceinline__ int warp_max(int v) {

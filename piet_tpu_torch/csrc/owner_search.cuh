@@ -5,7 +5,8 @@
 // source rows) both take it the same way: one warp per end of a block of
 // slots finds the owners of the block's first and last live slot, and each
 // thread then binary-searches only that span, a few sources in lines the
-// block already has in L1.
+// block already has in L1.  The tails' lower bound over the sorted
+// entries' tiles lives here too.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -34,6 +35,26 @@ __device__ int warp_search(const int* __restrict__ counts,
     const int q_last = lo + (f - 1) * step;
     lo = q_last + 1;
     if (f < 32) hi = min(hi, lo + step - 1);
+  }
+  return lo;
+}
+
+// The first index of the non-decreasing v[0, n) whose value is at least
+// key (n if none), by one warp: each step probes 32 evenly spaced entries
+// of the remaining range [lo, hi], so n entries take about log32(n)
+// loads.  The sorted entries' tile runs (dense_tail.cu, entries_tail.cu)
+// take it.  Every lane returns the answer.
+__device__ int warp_lower_bound(const int* v, int n, int key) {
+  const int lane = threadIdx.x & 31;
+  int lo = 0, hi = n;  // the answer lies in [lo, hi]
+  while (lo < hi) {
+    const int step = (hi - lo + 31) / 32;
+    const int p = lo + (lane + 1) * step - 1;
+    const unsigned ge = __ballot_sync(FULL, p >= hi || __ldg(v + p) >= key);
+    if (ge == 0) return hi;  // lane 31 probed hi - 1
+    const int k = __ffs(ge) - 1;
+    hi = min(lo + (k + 1) * step - 1, hi);
+    lo += k * step;
   }
   return lo;
 }

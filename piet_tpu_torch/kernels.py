@@ -67,6 +67,7 @@ _SIGNATURES = {
     "piet_gather_backdrop": [_P] * 4 + [_I, _P],
     "piet_fine_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "piet_dense_tail": [_P] * 9 + [_I] * 5 + [_P],
+    "piet_entries_tail": [_P] * 6 + [_I] * 3 + [_P],
     "piet_seg_rows": [_P] * 9 + [_I] * 3 + [_P],
     "piet_cand_rows": [_P] * 9 + [_I] * 3 + [_P],
     "piet_probe_numerics": [_I] + [_P] * 6 + [_I, _P],

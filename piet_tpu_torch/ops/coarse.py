@@ -8,8 +8,9 @@ item rows and their candidate expansion), kernel B (hit records), keyed
 sums, the backdrop prefix, the entry rows and sort keys (the hit records'
 words and the candidates' tail commands, ops/cand_rows.py), one stable
 sort (kernel C) and the sorted gather.  ``output="entries"`` then adds the
-``W_RUN`` run words, per-tile ranges and the bail; ``output="dense"``
-scatters the records into (T, CAP) command lists (``ops/dense_tail.py``).
+``W_RUN`` run words, per-tile ranges and the bail (``ops/entries_tail.py``);
+``output="dense"`` scatters the records into (T, CAP) command lists
+(``ops/dense_tail.py``).
 Each stage is one call, and each called op picks its kernel or its plain
 version from its tensors' device (``kernels.on_cuda``).
 Both outputs are word for word the JAX pass's
@@ -44,13 +45,12 @@ from typing import NamedTuple, Optional
 import torch
 
 from .. import tracing
-from ..layout.entry_stream import (ENTRY_WORDS, RUN_CAP, W_BAIL, W_RUN,
-                                   W_S0_TAG, W_S1_TAG)
-from ..raster.ptcl import CMD_FILL, CMD_LINE
+from ..layout.entry_stream import ENTRY_WORDS
 from ..scene.scene import TAG_CLIP, TAG_FILL, TAG_LINE, TAG_POLY
 from .cand_rows import cand_rows
 from .candfuse import cand_prep_expand
 from .dense_tail import dense_tail, meta_bits
+from .entries_tail import entries_tail
 from .expand import expand_rows
 from .gatherm import backdrop_from_csum, gather_endpoints
 from .hitfuse import hit_records_fused
@@ -71,7 +71,10 @@ F32, I32 = torch.float32, torch.int32
 #: "cand_emit" (and "del_scatter"); the segment rows' call (ops/seg_rows.py)
 #: "seg_derive" (and "seg_rects", whose probe follows it with no device
 #: op between).  "tile_reduce" runs to the end of the
-#: pass (the bail, and on the dense route the dense tail).  The
+#: pass (the bail, and on the dense route the dense tail).  The entries
+#: tail's call (ops/entries_tail.py) writes the run words and the per-tile
+#: outputs at once: "runs" stands after it on an unpaired pass, and
+#: "tile_reduce" holds it on a paired one.  The
 #: segment stages ("seg_expand" .. "seg_rects") run only where the
 #: segments are derived on the device; "pairing" only on a paired entries
 #: pass, "runs" only on an unpaired one.
@@ -86,13 +89,15 @@ class _StopAfter(Exception):
 
 class _Probes:
     """The pass's stage probes: off (no probe is kept), or an ordered dict
-    name -> the stage's output tensors, the pass ending after ``upto``."""
+    name -> the stage's output tensors, the pass ending after ``upto``;
+    ``keep``: every stage's probe outlives the pass (``with_probes``)."""
 
     def __init__(self, on: bool, upto: Optional[str]):
         if upto is not None and upto not in PROBE_STAGES:
             raise ValueError(f"unknown stage {upto!r}; stages: "
                              f"{PROBE_STAGES}")
         self.found = {} if (on or upto is not None) else None
+        self.keep = on
         self.upto = upto
 
     def __call__(self, name: str, *vals: torch.Tensor) -> None:
@@ -290,8 +295,9 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
     "expand" and "seg_rows" -- the rows' inputs and keywords -- on the
     device-derived segment stage; "pairing" -- the
     compaction's bundle and keep mask; "dense_tail" -- the dense tail's
-    tensors, the live mask its plain version reads, and its keywords) --
-    for tests and chip_smoke.py.
+    tensors, the live mask its plain version reads, and its keywords;
+    "entries_tail" -- a copy of the entries tail's stream, its tiles and
+    its keywords) -- for tests and chip_smoke.py.
 
     ``with_probes=True`` adds ``diag["probes"]``: name -> the output
     tensors of each stage that ran (:data:`PROBE_STAGES`), in order.
@@ -453,85 +459,30 @@ def _coarse_pass(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
         probe("tile_reduce", out.tags, out.args, out.counts)
         return out
 
-    e_ncmds, e_is_opaque, e_is_clear = meta_bits(stream16)
-    if pair_mode != "off":
-        p = pair_entries(stream16, sorted_keys, live, e_tile, e_ncmds,
-                         e_is_opaque, e_is_clear, n_tiles, mode=pair_mode,
+    # ---- run words, per-tile ranges, command totals and the bail -------
+    # One call (ops/entries_tail.py); on an unpaired stream it also writes
+    # the run words: on the card into the sorted gather's stream itself,
+    # so into a copy where the probes keep that stream (the plain version
+    # on the CPU returns a new stream).
+    run_words = pair_mode == "off"
+    if not run_words:
+        p = pair_entries(stream16, sorted_keys, live, e_tile,
+                         *meta_bits(stream16), n_tiles, mode=pair_mode,
                          taps=taps)
-        stream16, live, e_tile = p.rows, p.live, p.e_tile
-        e_ncmds, e_is_opaque, e_is_clear = (p.e_ncmds, p.e_is_opaque,
-                                            p.e_is_clear)
+        stream16, e_tile = p.rows, p.e_tile
         probe("pairing", stream16)
-    else:
-        stream16 = _run_words(stream16, live, e_tile, n_tiles)
+    tail_kw = dict(n_tiles=n_tiles, run_words=run_words)
+    if taps is not None:
+        taps["entries_tail"] = ((stream16.clone(), e_tile), tail_kw)
+    if run_words and probe.keep and dev.type == "cuda":
+        stream16 = stream16.clone()
+    stream16, first, n_live, counts, solid = entries_tail(
+        stream16, e_tile, **tail_kw)
+    if run_words:
         probe("runs", stream16)
-
-    # ---- per-tile ranges, command totals and the bail ------------------
-    cpos_excl, cpos_incl = _exclusive_cumsum(e_ncmds)
-    eidx = torch.arange(E, dtype=I32, device=dev)
-    seg_tile = torch.clamp(e_tile, max=n_tiles).contiguous()
-    bnd_t = torch.searchsorted(
-        seg_tile, torch.arange(n_tiles + 1, dtype=I32, device=dev),
-        side="left").to(I32)
-    first_t = bnd_t[:-1]
-    n_ent = bnd_t[1:] - first_t
-    has_entries = n_ent > 0
-    first_raw = W(has_entries, first_t, E + 1)
-    last_raw = W(has_entries, first_t + n_ent - 1, -1)
-    first_c = torch.clamp(first_raw, 0, E - 1)
-    last_c = torch.clamp(last_raw, 0, E - 1).long()
-    cpos_ext = torch.cat([cpos_excl, cpos_incl[-1:]])
-    cmd_b = cpos_ext[bnd_t[:-1].long()]
-    tile_cmd_base = W(has_entries, cmd_b, 0)
-    tile_cmd_total = W(has_entries, cpos_ext[bnd_t[1:].long()] - cmd_b, 0)
-    gm_opq = torch.cummax(W(e_is_opaque, eidx, -1), 0).values
-    gm_clr = torch.cummax(W(e_is_clear, eidx, -2), 0).values
-    opq_t = W(has_entries, gm_opq[last_c], -1)
-    opq_e = W(opq_t >= first_raw, opq_t, -1)
-    clr_t = W(has_entries, gm_clr[last_c], -2)
-    clr_e = W(clr_t >= first_raw, clr_t, -2)
-    best_entry = torch.clamp(opq_e, min=0)
-    last_opaque = W(opq_e >= 0,
-                    cpos_excl[best_entry.long()] - tile_cmd_base, -1)
-
-    bail = clr_e < opq_e
-    best_color = stream16[best_entry.long(), W_BAIL]
-    solid = W(bail, W(last_opaque >= 0, best_color, -1), 0)
-    start = W(bail, 0, W(last_opaque >= 0, last_opaque, 0))
-    count_post = W(bail, 0, tile_cmd_total - start)
-
-    first_live = W(last_opaque >= 0, best_entry, first_c)
-    n_live = W(bail | ~has_entries, 0, last_raw - first_live + 1)
-    first_live = W(n_live > 0, first_live, 0)
     diag["live_entries"] = n_live.sum()
-    out = CoarseEntries(stream=stream16.view(F32), first=first_live.to(I32),
-                        n_entries=n_live.to(I32), counts=count_post.to(I32),
-                        solid=solid.to(I32), diag=diag)
+    out = CoarseEntries(stream=stream16.view(F32), first=first,
+                        n_entries=n_live, counts=counts, solid=solid,
+                        diag=diag)
     probe("tile_reduce", out.first, out.n_entries, out.solid)
     return out
-
-
-def _run_words(stream16: torch.Tensor, live: torch.Tensor,
-               e_tile: torch.Tensor, n_tiles: int) -> torch.Tensor:
-    """``stream16`` with its ``W_RUN`` words: the remaining length of each
-    entry's streak of same-class (plain fill or line) entries in its tile,
-    + for fills, - for lines, 0 elsewhere."""
-    dev = stream16.device
-    E = stream16.shape[0]
-    W = torch.where
-    sf = stream16.view(F32)
-    t0w = sf[:, W_S0_TAG]
-    t1w = sf[:, W_S1_TAG]
-    run_pf = live & (t0w == 0.0) & (t1w == float(CMD_FILL))
-    run_ln = live & (t0w == float(CMD_LINE)) & (t1w == 0.0)
-    clsf = W(run_pf, 1.0, W(run_ln, 2.0, 0.0))
-    tkey = clsf * float(n_tiles + 1) + torch.clamp(e_tile, max=n_tiles).to(
-        F32)
-    prev = torch.cat([torch.full((1,), -1.0, device=dev), tkey[:-1]])
-    eidxf = torch.arange(E, dtype=F32, device=dev)
-    bnd = W(tkey != prev, eidxf, float(E))
-    nxt = torch.flip(torch.cummin(torch.flip(bnd, [0]), 0).values, [0])
-    next_b = torch.cat([nxt[1:], torch.full((1,), float(E), device=dev)])
-    run_len = torch.clamp(next_b - eidxf, max=float(RUN_CAP))
-    w_run = W(run_pf, run_len, W(run_ln, -run_len, 0.0))
-    return torch.cat([stream16[:, :W_RUN], _bits(w_run)[:, None]], dim=1)

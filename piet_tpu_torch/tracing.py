@@ -106,8 +106,8 @@ def span(name: str):
 #: each, and ``probe_numerics``' division op, launched for
 #: ``div_probe``, counts as "probe_div".
 LAUNCHES = {"candfuse": 0, "hitfuse": 0, "sort": 0, "fine": 0, "expand": 0,
-            "keyed": 0, "gatherm": 0, "dense_tail": 0, "seg_rows": 0,
-            "cand_rows": 0, "fine_dense": 0, "fine_paired": 0,
+            "keyed": 0, "gatherm": 0, "dense_tail": 0, "entries_tail": 0,
+            "seg_rows": 0, "cand_rows": 0, "fine_dense": 0, "fine_paired": 0,
             "expand_pairing": 0, "probe_div": 0, "probe_numerics": 0,
             "probe_halfmix": 0, "probe_delivery": 0, "probe_mosaic": 0,
             "probe_dma16": 0}
